@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
    samples, ``ds_capacity=16384``, ``map_capacity=2**18``, 0.4 m voxels,
    ``max_iters=4``.  After the warm-up scans, hold each kernel against its
    plain PyTorch version on the card, on the main path's own
-   first-iteration inputs, and time both.
+   first-iteration inputs; check that a call is one launch, that two
+   launches and a CUDA-graph replay agree bitwise; time kernel and plain
+   version beside the bound and the launch floor (the device time of a
+   one-element PyTorch op).
 3. Set the launch counts to 0, time the main path over the timed scans,
    read the counts, and check the trajectory (finite state, ATE < 0.1 m,
    ``bench.py``'s own sanity bound) and that every kernel ran
@@ -37,12 +40,14 @@ N_TIMING = 100                      # launches per timing (median reported)
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
-# fp32 operations per point of the fused reduction, counted from
-# csrc/p2p_reduce.cu: every point is transformed to the world frame and gated
-# (18 + 18 + 6 + 6 + 5 = 53); a point that passes the gate also builds its
-# 12 Jacobian entries (15 + 15 + 9 + 12 + 3 = 54) and accumulates them
-# (12 + 2 * 78 + 2 * 12 + 3 = 195).
-P2P_OPS_GATE, P2P_OPS_VALID = 53, 53 + 54 + 195
+# fp32 operations per point of the fused reduction without extrinsic
+# estimation (the main path's flag), counted from csrc/p2p_reduce.cu: every
+# point is transformed to the world frame and gated (18 + 18 + 6 + 6 + 5 =
+# 53); a point that passes the gate also builds its 6 pose Jacobian entries
+# (15 + 12 = 27) and accumulates them (6 + 2 * 21 + 2 * 6 + 3 = 63, a fused
+# multiply-add counted as 2).  The 57 extrinsic sums are zero and need no
+# work.
+P2P_OPS_GATE, P2P_OPS_VALID = 53, 53 + 27 + 63
 
 
 def fail(msg: str) -> None:
@@ -72,24 +77,34 @@ def time_ms(fn, n=N_TIMING):
     return float(np.median(times))
 
 
-def device_ms(fn, match="", n=N_TIMING):
-    """Device milliseconds per ``fn()``: the summed time of the kernels whose
-    name contains ``match`` that n calls launch, from the profiler's device
-    trace, over n."""
+def device_ms(fn, match="", n=N_TIMING, tries=5):
+    """(device ms, kernels) per ``fn()``: the summed time and the count of
+    the kernels whose name contains ``match`` that n calls launch, from the
+    profiler's device trace, over n.  The profiler now and then drops a
+    couple of kernel records from a trace, so only a trace that holds the
+    same whole number of kernels for every call counts; another is taken
+    again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
-    if total_us <= 0:
-        fail("the profiler recorded no device time")
-    return total_us / 1e3 / n
+    for k in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+        count = sum(e.count for e in ev)
+        per_call = round(count / n)
+        if per_call >= 1 and count == per_call * n:
+            if k:
+                log(f"the profiler dropped records of {match or 'all'!r} kernels in "
+                    f"{k} trace(s), taken again")
+            return sum(e.self_device_time_total for e in ev) / 1e3 / n, per_call
+    fail(f"the profiler recorded {count} kernels matching {match!r} for {n} calls "
+         f"in the last of {tries} traces")
 
 
 def card_line() -> str:
@@ -137,7 +152,7 @@ def p2p_inputs(cfg, st, scan):
 def check_p2p(args, max_resid, report):
     """Hold the p2p kernel against its plain version; time both."""
     import torch
-    from lsd_tpu_torch.ops.p2p import p2p_reduce, p2p_reduce_plain
+    from lsd_tpu_torch.ops.p2p import _launch, launch_shape, p2p_reduce, p2p_reduce_plain
 
     n_full = args[0].shape[0]
     zero_w = torch.zeros_like(args[3])
@@ -150,24 +165,33 @@ def check_p2p(args, max_resid, report):
               tuple(a[:n_full - 37] if a.dim() and a.shape[0] == n_full else a
                     for a in args), True),
              ("N=%d all-masked" % n_full, args[:3] + (zero_w,) + args[4:], False)]
+    blocks, threads = launch_shape(args[0].device)
+    if blocks == 16:
+        # the 8-block cluster that a card without room for 16 falls back to
+        # (called directly: these launches are not the main path's)
+        cases += [(f"{name}, 8-block cluster", a, est, 8) for name, a, est in cases[:2]]
     max_err = 0.0
-    for name, a, est in cases:
-        HtH, Htr, st = p2p_reduce(*a, max_resid, est_extrinsic=est)
-        HtH2, Htr2, st2 = p2p_reduce(*a, max_resid, est_extrinsic=est)
+    for name, a, est, *cluster in cases:
+        if cluster:
+            call = lambda: tuple(_launch(a, max_resid, est, cluster[0]).split_with_sizes(
+                (24 * 24, 24, 3)))
+        else:
+            call = lambda: p2p_reduce(*a, max_resid, est_extrinsic=est)
+        HtH, Htr, st = call()
+        HtH2, Htr2, st2 = call()
+        HtH, HtH2 = HtH.view(24, 24), HtH2.view(24, 24)
         torch.cuda.synchronize()
         if not (torch.equal(HtH, HtH2) and torch.equal(Htr, Htr2) and torch.equal(st, st2)):
             fail(f"p2p_reduce {name}: two launches differ bitwise")
         rH, rr, rs = p2p_reduce_plain(*a, max_resid, est_extrinsic=est)
-        n = a[0].shape[0]
         err_H = float((HtH - rH).abs().max())
         err_r = float((Htr - rr).abs().max())
         tol_H = 1e-5 * float(rH.abs().max())
         tol_r = 1e-4 * max(float(rr.abs().max()), 1.0)
         nv, rnv = float(st[0]), float(rs[0])
-        # n_valid is exact where kernel and plain version round alike; a
-        # residual on the gate's edge may flip where they do not (an FMA the
-        # compiler contracted), so 0.01 % of N points are allowed to flip
-        ok = (err_H <= tol_H and err_r <= tol_r and abs(nv - rnv) <= 1e-4 * n
+        # n_valid is exact: the kernel, built without FMA contraction, rounds
+        # each operation of the gate as the plain version does
+        ok = (err_H <= tol_H and err_r <= tol_r and nv == rnv
               and abs(float(st[1]) - float(rs[1])) <= 1e-5 * abs(float(rs[1])) + 1e-6
               and abs(float(st[2]) - float(rs[2])) <= 1e-5 * abs(float(rs[2])) + 1e-6)
         log(f"p2p_reduce {name}: n_valid {nv:.0f} (plain {rnv:.0f}) "
@@ -176,12 +200,20 @@ def check_p2p(args, max_resid, report):
         if not ok:
             fail(f"p2p_reduce {name}: kernel disagrees with its plain version")
         max_err = max(max_err, err_H, err_r)
+    check_p2p_graph(args, max_resid)
 
-    # times at the main path's shape and flag: device time of the kernel's
-    # two passes (of all the plain version's kernels), and each call's time
-    # between CUDA events
-    ms = device_ms(lambda: p2p_reduce(*args, max_resid), match="p2p_")
-    plain_ms = device_ms(lambda: p2p_reduce_plain(*args, max_resid))
+    # times at the main path's shape and flag: device time per call of the
+    # kernel (of all the plain version's kernels), and each call's time
+    # between CUDA events; the launch floor is the device time of a
+    # one-element op
+    ms, per_call = device_ms(lambda: p2p_reduce(*args, max_resid), match="p2p_")
+    if per_call != 1:
+        fail(f"p2p_reduce: the profiler saw {per_call} p2p_ kernels per call, expected 1")
+    plain_ms, plain_kernels = device_ms(lambda: p2p_reduce_plain(*args, max_resid))
+    one = torch.zeros(1, device=args[0].device)
+    floor_ms, _ = device_ms(lambda: one.add_(1.0))
+    ms_8 = (device_ms(lambda: _launch(args, max_resid, False, 8), match="p2p_")[0]
+            if blocks == 16 else None)
     call_ms = time_ms(lambda: p2p_reduce(*args, max_resid))
     plain_call_ms = time_ms(lambda: p2p_reduce_plain(*args, max_resid))
     n = args[0].shape[0]
@@ -191,35 +223,47 @@ def check_p2p(args, max_resid, report):
     ops = n_valid * P2P_OPS_VALID + (n - n_valid) * P2P_OPS_GATE
     t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_FLOPS * 1e3
-    log(f"p2p_reduce N={n}: device time per call: kernel {ms:.5f} ms, plain "
-        f"{plain_ms:.5f} ms; call time (CUDA events, median of {N_TIMING}): kernel "
-        f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
-        f"bound {max(t_bytes, t_ops):.6f} ms ({in_bytes + out_bytes} B, "
-        f"{ops:.0f} fp32 ops, {n_valid:.0f} valid); no single PyTorch call "
-        f"computes this function (library time: none)")
+    log(f"p2p_reduce N={n}: device time per call: kernel {ms:.5f} ms ({per_call:.0f} "
+        f"launch, one cluster of {blocks} blocks x {threads} threads; an 8-block "
+        f"cluster: {'-' if ms_8 is None else f'{ms_8:.5f}'} ms), plain {plain_ms:.5f} ms ({plain_kernels} kernels); call time "
+        f"(CUDA events, median of {N_TIMING}): kernel {call_ms:.4f} ms, plain "
+        f"{plain_call_ms:.4f} ms; bound {max(t_bytes, t_ops):.6f} ms "
+        f"({in_bytes + out_bytes} B, {ops:.0f} fp32 ops, {n_valid:.0f} valid); "
+        f"launch floor {floor_ms:.5f} ms; no single PyTorch call computes this "
+        f"function (library time: none)")
     report.update(name="p2p_reduce", route="cuda",
                   source="lsd_tpu_torch/csrc/p2p_reduce.cu",
                   replaces="lsd_tpu/ops/pallas_p2p.py:43",
                   max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                   bound_ms=max(t_bytes, t_ops),
                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                  library_ms=None)
+                  library_ms=None, floor_ms=floor_ms, call_ms=call_ms,
+                  plain_call_ms=plain_call_ms, cluster_blocks=blocks, block_threads=threads,
+                  ms_8_block_cluster=ms_8)
 
 
-def count_syncs(fn):
-    """Run fn() with CUDA sync debugging on; return (result, host syncs)."""
-    import warnings
+def check_p2p_graph(args, max_resid):
+    """A call captured in a CUDA graph and replayed equals a direct call,
+    bitwise, and the replay reads the inputs as they are at replay."""
     import torch
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    n = sum("synchroniz" in str(w.message).lower() for w in caught)
-    return out, n
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    args = tuple(a.clone() for a in args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        p2p_reduce(*args, max_resid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = p2p_reduce(*args, max_resid)
+    for scale in (1.0, 0.5):
+        args[3].mul_(scale)
+        graph.replay()
+        direct = p2p_reduce(*args, max_resid)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(captured, direct)):
+            fail(f"p2p_reduce: a CUDA-graph replay differs from a direct call (weights x{scale})")
+    log("p2p_reduce: CUDA-graph replay equals a direct call bitwise, twice")
 
 
 def main() -> None:
@@ -267,10 +311,10 @@ def main() -> None:
     torch.cuda.synchronize()
     p2p_report = {}
     check_p2p(p2p_inputs(cfg, st, scans[N_WARM]), cfg.max_resid, p2p_report)
-    # less what the check itself reports around no work
-    syncs = (count_syncs(lambda: lio_step(cfg, st, *scans[N_WARM]))[1]
-             - count_syncs(lambda: None)[1])
-    log(f"host syncs in one lio_step: {syncs}")
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    sites = sync_sites(lambda: lio_step(cfg, st, *scans[N_WARM]))[1]
+    syncs = sum(sites.values())
+    log(f"host syncs in one lio_step: {syncs}; by site {sites}")
 
     # ---- 3. the main path ------------------------------------------------
     p2p_reduce.launches = 0

@@ -94,16 +94,72 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"p2p_reduce: {name} must be contiguous")
 
 
+_NAMES = ("pts_l", "normals", "d", "weight", "R", "Re", "te", "pos")
+_OUT = 24 * 24 + 24 + 3                   # HtH, Htr, stats in one buffer
+
+
+def _check_all(ts, n: int) -> None:
+    """Raise for an argument the kernel does not take.  One cheap pass;
+    ``_check`` names the culprit only when that pass fails."""
+    p, nm, d, w, R, Re, te, pos = ts
+    dev = p.device
+    ok = (p.shape == (n, 3) and nm.shape == (n, 3) and d.shape == (n,) and w.shape == (n,)
+          and R.shape == (3, 3) and Re.shape == (3, 3) and te.shape == (3,)
+          and pos.shape == (3,))
+    for t in ts:
+        ok = ok and t.dtype is torch.float32 and t.device == dev and t.is_contiguous()
+    if not ok:
+        shapes = ((n, 3), (n, 3), (n,), (n,), (3, 3), (3, 3), (3,), (3,))
+        for name, t, shape in zip(_NAMES, ts, shapes):
+            _check(name, t, shape, dev)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("p2p_reduce")
     lib.p2p_reduce_launch.restype = ctypes.c_int
     lib.p2p_reduce_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
-        + [ctypes.c_void_p] * 5)
-    lib.p2p_reduce_scratch_floats.restype = ctypes.c_int
-    lib.p2p_reduce_scratch_floats.argtypes = []
+        [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    lib.p2p_reduce_shape.restype = ctypes.c_int
+    lib.p2p_reduce_shape.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
     return lib
+
+
+def _raise_for(err: int) -> None:
+    if err == -1:
+        raise RuntimeError("p2p_reduce: no cluster of the kernel (16 or 8 blocks) fits on this card")
+    if err != 0:
+        raise RuntimeError(f"p2p_reduce: kernel launch failed with CUDA error {err}")
+
+
+def launch_shape(device: torch.device) -> Tuple[int, int]:
+    """(blocks in the cluster, threads per block) of the kernel that
+    ``p2p_reduce`` launches on a CUDA device: 16 blocks where a 16-block
+    cluster fits, else 8."""
+    index = torch.device(device).index
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_for(_library().p2p_reduce_shape(
+        torch.cuda.current_device() if index is None else index,
+        ctypes.byref(blocks), ctypes.byref(threads)))
+    return blocks.value, threads.value
+
+
+def _launch(ts, max_resid: float, est_extrinsic: bool, cluster: int = 0) -> torch.Tensor:
+    """Launch the kernel on checked CUDA tensors ``ts`` (the eight array
+    arguments of ``p2p_reduce``) and return its (603,) output buffer.
+    ``cluster`` 0 takes the device's cluster size; 8 or 16 asks for that
+    size, so that the card tests reach the one a card does not choose."""
+    pts_l = ts[0]
+    dev = pts_l.device
+    n = pts_l.shape[0]
+    if n >= 2 ** 31 - 2 ** 16:
+        raise ValueError(f"p2p_reduce: {n} points exceed the kernel's int32 count")
+    out = torch.empty(_OUT, dtype=torch.float32, device=dev)
+    _raise_for(_library().p2p_reduce_launch(
+        *[t.data_ptr() for t in ts], n, float(max_resid), 1 if est_extrinsic else 0, cluster,
+        out.data_ptr(), dev.index, torch._C._cuda_getCurrentRawStream(dev.index)))
+    return out
 
 
 def p2p_reduce(pts_l: torch.Tensor, normals: torch.Tensor, d: torch.Tensor,
@@ -117,43 +173,20 @@ def p2p_reduce(pts_l: torch.Tensor, normals: torch.Tensor, d: torch.Tensor,
     n.x + d = 0; weight (N,) = mask * inv_var (0 disables a point); R, Re
     (3, 3) body and extrinsic rotations; te, pos (3,).  All float32,
     contiguous, on one device.  Returns (HtH (24, 24), Htr (24,),
-    stats (3,) = [n_valid, sum |r|, sum w]).
+    stats (3,) = [n_valid, sum |r|, sum w]); on CUDA they are views of one
+    buffer that the kernel's one launch fills.
     """
-    dev = pts_l.device
-    n = pts_l.shape[0]
-    for name, t, shape in (("pts_l", pts_l, (n, 3)), ("normals", normals, (n, 3)),
-                           ("d", d, (n,)), ("weight", weight, (n,)),
-                           ("R", R, (3, 3)), ("Re", Re, (3, 3)),
-                           ("te", te, (3,)), ("pos", pos, (3,))):
-        _check(name, t, shape, dev)
-    if dev.type == "cpu":
-        return p2p_reduce_plain(pts_l, normals, d, weight, R, Re, te, pos,
-                                max_resid, est_extrinsic)
-    if dev.type != "cuda":
-        raise ValueError(f"p2p_reduce: unsupported device {dev}")
-    if n >= 2 ** 31:
-        raise ValueError(f"p2p_reduce: {n} points exceed the kernel's int32 index")
-
-    lib = _library()
-    # device parameter buffer: no host round trip for the pose.  params and
-    # scratch go back to PyTorch's stream-ordered allocator when this
-    # returns; work that reuses them is queued after the kernel on the stream
-    params = torch.cat([R.reshape(-1), Re.reshape(-1), te, pos])
-    scratch = torch.empty(lib.p2p_reduce_scratch_floats(), dtype=torch.float32, device=dev)
-    HtH = torch.empty((24, 24), dtype=torch.float32, device=dev)
-    Htr = torch.empty((24,), dtype=torch.float32, device=dev)
-    stats = torch.empty((3,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.p2p_reduce_launch(
-            pts_l.data_ptr(), normals.data_ptr(), d.data_ptr(), weight.data_ptr(),
-            params.data_ptr(), n, float(max_resid), 1.0 if est_extrinsic else 0.0,
-            scratch.data_ptr(), HtH.data_ptr(), Htr.data_ptr(), stats.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"p2p_reduce: kernel launch failed with CUDA error {err}")
+    ts = (pts_l, normals, d, weight, R, Re, te, pos)
+    _check_all(ts, pts_l.shape[0])
+    dev_type = pts_l.device.type
+    if dev_type == "cpu":
+        return p2p_reduce_plain(*ts, max_resid, est_extrinsic)
+    if dev_type != "cuda":
+        raise ValueError(f"p2p_reduce: unsupported device {pts_l.device}")
+    out = _launch(ts, max_resid, est_extrinsic)
     p2p_reduce.launches += 1
-    return HtH, Htr, stats
+    HtH, Htr, stats = out.split_with_sizes((24 * 24, 24, 3))
+    return HtH.view(24, 24), Htr, stats
 
 
-p2p_reduce.launches = 0   # kernel launches (pairs of passes) since the last reset
+p2p_reduce.launches = 0   # kernel launches since the last reset

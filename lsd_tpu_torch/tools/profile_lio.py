@@ -13,8 +13,7 @@ Runs ``lio_step`` at ``bench.py``'s size (32,768-point ``CircleSim`` scans,
   not overlap) and its idle share;
 - each ``lio_step/*`` span's host ms and kernel launches per scan;
 - the kernels and the host-side operators that take the most time;
-- the host syncs of one scan, by the source line that caused them, less
-  those the sync check reports around no work at all.
+- the host syncs of one scan, by the source line that caused them.
 
 It needs a card; it has no CPU path.
 """
@@ -50,30 +49,35 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
-def _sync_sites(fn) -> dict:
-    """Host syncs while fn() runs, counted by the innermost line of this
-    package on the stack when each happened."""
+def sync_sites(fn):
+    """(fn(), host syncs while it ran by site).  A site is the innermost line
+    of this package on the stack when the sync was reported or, where the
+    stack holds none, its last three frames.  Only the sync report counts,
+    not the notice that torch gives once per process when the mode is first
+    switched on ("...is a prototype feature...")."""
     sites = collections.Counter()
     pkg = str(Path(__file__).resolve().parent.parent)
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message).lower():
+        if "called a synchronizing cuda operation" not in str(message).lower():
             return
-        frames = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)
-                  and not f.filename.endswith("profile_lio.py")]
-        f = frames[-1] if frames else None
-        sites[f"{Path(f.filename).name}:{f.lineno}" if f else f"{filename}:{lineno}"] += 1
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(pkg)
+                and not f.filename.endswith("profile_lio.py")]
+        frames = ours[-1:] or stack[-3:]
+        sites[" < ".join(f"{Path(f.filename).name}:{f.lineno}" + ("" if ours else f" {f.name}")
+                         for f in reversed(frames))] += 1
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return dict(sites.most_common())
+    return out, dict(sites.most_common())
 
 
 def main(argv=None) -> dict:
@@ -109,9 +113,7 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = len(traced)
-    sync_sites = _sync_sites(lambda: lio_step(cfg, st, *scans[-1]))
-    # what turning the sync check on and off reports with no work between
-    empty_sites = _sync_sites(lambda: None)
+    syncs = sync_sites(lambda: lio_step(cfg, st, *scans[-1]))[1]
 
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     events = prof.key_averages()
@@ -150,8 +152,7 @@ def main(argv=None) -> dict:
         host_ops=[dict(name=e.key, calls_per_scan=e.count / n,
                        self_host_ms_per_scan=e.self_cpu_time_total / 1e3 / n)
                   for e in host_ops],
-        host_syncs_per_scan=sum(sync_sites.values()) - sum(empty_sites.values()),
-        host_sync_sites=sync_sites, host_sync_sites_of_no_work=empty_sites,
+        host_syncs_per_scan=sum(syncs.values()), host_sync_sites=syncs,
     )
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

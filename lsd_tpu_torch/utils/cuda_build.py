@@ -48,12 +48,13 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
+    nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a temporary name, then rename: concurrent builds never
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -10,7 +10,9 @@ against its plain PyTorch version on the card.  Tolerances for
 ``p2p_reduce``: HtH within 1e-5 * max|HtH| and Htr within
 1e-4 * max(|Htr|, 1) (the kernel sums in a fixed block order, the plain
 version through a matmul); n_valid exact (both round each operation alike,
-the kernel being built without FMA contraction); two launches bitwise equal.
+the kernel being built without FMA contraction); two launches bitwise equal,
+and so a CUDA-graph replay and a direct call.  Each call is one launch of
+the kernel.
 """
 import numpy as np
 import pytest
@@ -44,18 +46,26 @@ def _inputs(n, dev, seed=0):
 
 @pytest.mark.parametrize("n", [1, 1000, 16384 - 37, 16384, 100000])
 @pytest.mark.parametrize("est_ext", [False, True])
-def test_p2p_kernel_matches_plain(cuda, n, est_ext):
-    from lsd_tpu_torch.ops.p2p import p2p_reduce, p2p_reduce_plain
+@pytest.mark.parametrize("cluster", [0, 8])
+def test_p2p_kernel_matches_plain(cuda, n, est_ext, cluster):
+    """cluster 0 is ``p2p_reduce`` with the card's cluster size; 8 is the
+    8-block cluster that a card without room for 16 falls back to."""
+    from lsd_tpu_torch.ops import p2p
     args = _inputs(n, cuda, seed=n)
-    before = p2p_reduce.launches
-    out = p2p_reduce(*args, 1.0, est_extrinsic=est_ext)
-    again = p2p_reduce(*args, 1.0, est_extrinsic=est_ext)
-    assert p2p_reduce.launches == before + 2
-    ref = p2p_reduce_plain(*args, 1.0, est_extrinsic=est_ext)
+    if cluster:
+        run = lambda: p2p._launch(args, 1.0, est_ext, cluster).split_with_sizes((576, 24, 3))
+    else:
+        run = lambda: p2p.p2p_reduce(*args, 1.0, est_extrinsic=est_ext)
+    before = p2p.p2p_reduce.launches
+    out = run()
+    again = run()
+    assert p2p.p2p_reduce.launches == before + (0 if cluster else 2)
+    ref = p2p.p2p_reduce_plain(*args, 1.0, est_extrinsic=est_ext)
     torch.cuda.synchronize()
     for a, b in zip(out, again):
         assert torch.equal(a, b)
     H, r, s = out
+    H = H.view(24, 24)
     rH, rr, rs = ref
     assert float((H - rH).abs().max()) <= 1e-5 * float(rH.abs().max())
     assert float((r - rr).abs().max()) <= 1e-4 * max(float(rr.abs().max()), 1.0)
@@ -65,6 +75,12 @@ def test_p2p_kernel_matches_plain(cuda, n, est_ext):
         assert float(H[18:].abs().max()) == 0.0 and float(r[18:].abs().max()) == 0.0
 
 
+def test_p2p_launch_shape_is_16_or_8_blocks_of_256(cuda):
+    from lsd_tpu_torch.ops.p2p import launch_shape
+    blocks, threads = launch_shape(cuda)
+    assert blocks in (16, 8) and threads == 256
+
+
 def test_p2p_kernel_all_masked(cuda):
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     args = list(_inputs(4096, cuda))
@@ -72,6 +88,62 @@ def test_p2p_kernel_all_masked(cuda):
     H, r, s = p2p_reduce(*args, 1.0)
     assert float(H.abs().max()) == 0.0 and float(r.abs().max()) == 0.0
     assert float(s.abs().max()) == 0.0
+
+
+def test_p2p_kernel_empty_input_gives_zeros(cuda):
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    H, r, s = p2p_reduce(*_inputs(0, cuda), 1.0, est_extrinsic=True)
+    torch.cuda.synchronize()
+    assert H.shape == (24, 24) and r.shape == (24,) and s.shape == (3,)
+    assert float(H.abs().max()) == 0.0 and float(r.abs().max()) == 0.0
+    assert float(s.abs().max()) == 0.0
+
+
+def test_p2p_kernel_is_one_launch_per_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    args = _inputs(16384, cuda)
+    p2p_reduce(*args, 1.0)
+    torch.cuda.synchronize()
+    # the profiler now and then drops a couple of kernel records from a
+    # trace: a trace with fewer kernels than calls is taken again, one with
+    # more fails
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                p2p_reduce(*args, 1.0)
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        count = sum(e.count for e in on_card if "p2p_" in e.key)
+        # nothing else ran on the card: no copy, fill or second pass
+        assert [e.key for e in on_card
+                if "p2p_" not in e.key and e.self_device_time_total > 0] == []
+        assert count <= 100
+        if count == 100:
+            break
+    assert count == 100
+
+
+def test_p2p_kernel_graph_replay_is_bitwise_equal(cuda):
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    args = _inputs(16384, cuda, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        p2p_reduce(*args, 1.0, est_extrinsic=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = p2p_reduce(*args, 1.0, est_extrinsic=True)
+    for scale in (1.0, 0.5):       # the replay reads the inputs as they are now
+        args[3].mul_(scale)
+        graph.replay()
+        direct = p2p_reduce(*args, 1.0, est_extrinsic=True)
+        torch.cuda.synchronize()
+        for a, b in zip(captured, direct):
+            assert torch.equal(a, b)
+    assert float(captured[2][0]) > 0
 
 
 def test_p2p_wrapper_rejects_mixed_devices(cuda):
