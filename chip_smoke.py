@@ -20,15 +20,36 @@ Phases, in order; any failure exits non-zero:
    read the counts, and check the trajectory (finite state, ATE < 0.1 m,
    ``bench.py``'s own sanity bound) and that every kernel ran
    ``max_iters`` times per scan.
+4. The mapping path at full width: ``lsd_tpu_torch.slam.mapper.Mapper`` on
+   the card over 95 scans of 32,768 points 1.2 times round an 8 m circle
+   (the world of the reference's own mapping test), the LIO configured as
+   above, a keyframe every 1.5 m, PGO every 8 keyframes, graph work
+   synchronous; then ``save()`` and ``load_map``.  Checks, the reference
+   test's own bars: more than 15 keyframes, at least one accepted loop,
+   trajectory RMSE against ground truth < 0.3 m, every PGO's cost finite
+   and its last round's not above its first's, the loaded map whole, and the p2p
+   kernel launched ``max_iters`` times per scan.  Then the same 95 scans
+   with the background graph worker and the pipelined fetch, ending in a
+   clean ``flush()`` and ``close()``: the worker raised nothing, dropped no
+   job, added a descriptor for every keyframe, and every ScanContext query,
+   ICP verification and PGO solve ran on its thread, with at least one loop
+   accepted and the same trajectory bar.
+5. The raw-point LIO path: 30 of phase 2's scans with
+   ``map_type="points"`` (finite state, ATE < 0.1 m, the p2p kernel
+   launched ``max_iters`` times per scan).
 
-It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``.  It has no CPU path:
-without a card, or without the ``lsd_tpu_torch`` package beside it, it fails.
+Each path starts with the launch counts at 0 and reads them at its end.  It
+prints one JSON line per path, the card's name and power limit, one
+``{"kernels": [...]}`` line, and as its last line ``{"ok": true, "device":
+{...}}``.  It has no CPU path: without a card, or without the
+``lsd_tpu_torch`` package beside it, it fails.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -36,6 +57,10 @@ import numpy as np
 N_WARM, N_BENCH = 5, 100
 CAP, IMU_CAP = 2 ** 15, 16
 ATE_LIMIT_M = 0.1
+N_MAPPING, N_POINTS = 95, 30
+MAPPING_RMSE_LIMIT_M = 0.3
+PGO_COST_RTOL = 1e-4                # float32 rounding of a converged cost (save()'s solve)
+SYNC_COUNT_SCANS = range(40, 46)    # mapping scans whose host syncs are counted
 N_TIMING = 100                      # launches per timing (median reported)
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
@@ -119,21 +144,13 @@ def card_line() -> str:
 def make_run(dev):
     """Scans on the device, the initial navigation state and the config."""
     import torch
-    from lsd_tpu_torch.geometry import so3
     from lsd_tpu_torch.sim import CircleSim, SimConfig
-    from lsd_tpu_torch.slam.lio import LioConfig
-    from lsd_tpu_torch.slam.state import init_state
+    from lsd_tpu_torch.tools.profile_lio import BENCH_CFG as cfg, nav_at_start
 
     sim = CircleSim(SimConfig(n_scans=N_WARM + N_BENCH, points_per_scan=CAP,
                               point_noise=0.01, seed=7))
     data = sim.generate(capacity=CAP, imu_capacity=IMU_CAP)
-    R, p = sim.pose(0.0)
-    nav0 = init_state(device=dev)._replace(
-        pos=torch.tensor(p, dtype=torch.float32, device=dev),
-        quat=so3.matrix_to_quat(torch.tensor(R, dtype=torch.float32, device=dev)),
-        vel=torch.tensor(sim.velocity(0.0), dtype=torch.float32, device=dev))
-    cfg = LioConfig(ds_capacity=16384, map_capacity=2 ** 18,
-                    scan_voxel=0.4, map_voxel=0.4, max_iters=4)
+    nav0 = nav_at_start(sim, dev)
     scans = [tuple(torch.as_tensor(a, device=dev) for a in d[:5]) for d in data]
     gt = np.stack([d[5] for d in data])
     return cfg, nav0, scans, gt
@@ -266,6 +283,239 @@ def check_p2p_graph(args, max_resid):
     log("p2p_reduce: CUDA-graph replay equals a direct call bitwise, twice")
 
 
+class EventTimer:
+    """Wraps a function of ``module`` so that each call runs between two
+    CUDA events; ``ms()`` gives the device-side milliseconds of each call."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.events, self.results, self.threads = [], [], []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.fn(*args, **kwargs)
+        b.record()
+        self.events.append((a, b))
+        self.results.append(out)
+        self.threads.append(threading.current_thread().name)
+        return out
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def run_mapping(dev, card, lio_cfg, n_scans=N_MAPPING, points=CAP):
+    """Phase 4: the mapping path; returns its report."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam import mapper as mapper_mod
+    from lsd_tpu_torch.slam.map_io import load_map
+    from lsd_tpu_torch.tools.profile_lio import mapping_run, sync_sites
+
+    t0 = time.perf_counter()
+    _, data, nav0, mcfg = mapping_run(dev, n_scans, points, lio_cfg)
+    log(f"mapping: made {len(data)} scans of {points} points in {time.perf_counter() - t0:.1f} s")
+    mapper = mapper_mod.Mapper(mcfg, nav0)
+    pgo = EventTimer(mapper_mod, "optimize")
+    icp = EventTimer(mapper_mod, "icp_point_to_plane")
+    syncs = {True: [], False: []}                  # by is_keyframe
+    sync_sites_seen = {}
+    p2p_reduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # scans arrive as host arrays, as the sensor delivers them
+    for k, d in enumerate(data):
+        step = lambda: mapper.process_scan(*d[:5], stamp_us=int(k * 1e5))
+        if k in SYNC_COUNT_SCANS:
+            out, sites = sync_sites(step)
+            syncs[out["is_keyframe"]].append(sum(sites.values()))
+            for site, n in sites.items():
+                sync_sites_seen[site] = sync_sites_seen.get(site, 0) + n
+        else:
+            step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = p2p_reduce.launches
+    if launches != lio_cfg.max_iters * n_scans:
+        fail(f"mapping: p2p_reduce launched {launches} times over {n_scans} scans, "
+             f"expected max_iters x scans = {lio_cfg.max_iters * n_scans}")
+    loops_in_run = len(mapper.loops)
+    with tempfile.TemporaryDirectory() as tmp:
+        mapper.save(tmp)                           # runs one more PGO
+        loaded = load_map(tmp)
+    pgo.restore()
+    icp.restore()
+    pgo_ms, icp_ms = pgo.ms(), icp.ms()
+
+    n_kf = len(mapper.store)
+    if not n_kf > 15:
+        fail(f"mapping: {n_kf} keyframes, expected more than 15")
+    if mapper.loop_stats["accepted"] < 1:
+        fail(f"mapping: no loop was accepted; loop_stats {mapper.loop_stats}")
+    traj = mapper.trajectory()
+    gt = np.stack([d[5] for d in data])
+    if traj.shape != (n_scans, 4, 4) or not np.isfinite(traj).all():
+        fail(f"mapping: trajectory of shape {traj.shape} is not {n_scans} finite poses")
+    rmse = float(np.sqrt(np.mean(np.sum((traj[:, :3, 3] - gt[:, :3, 3]) ** 2, axis=1))))
+    if not rmse < MAPPING_RMSE_LIMIT_M:
+        fail(f"mapping: trajectory RMSE {rmse} m is not below {MAPPING_RMSE_LIMIT_M} m")
+    all_costs = check_pgo_costs("mapping", pgo.results, flat=(len(pgo.results) - 1,))
+    if len(loaded["poses"]) != n_kf or len(loaded["edges"]) < n_kf - 1:
+        fail(f"mapping: the saved map loads {len(loaded['poses'])} poses and "
+             f"{len(loaded['edges'])} edges for {n_kf} keyframes")
+    for T, kf in zip(loaded["poses"], mapper.store.frames):
+        if not np.allclose(T, kf.pose, atol=1e-5):
+            fail(f"mapping: keyframe {kf.id}'s pose does not survive save and load")
+    report = dict(
+        card=card, scans=n_scans, points_per_scan=points,
+        ms_per_scan=dt / n_scans * 1e3, scans_per_s=n_scans / dt,
+        keyframes=n_kf, loops=loops_in_run, loop_stats=mapper.loop_stats,
+        rmse_m=rmse, pgo_solves=len(pgo_ms), pgo_ms_median=float(np.median(pgo_ms)),
+        pgo_ms_max=float(np.max(pgo_ms)),
+        pgo_costs_first_last=all_costs[:, [0, -1]].tolist(),
+        icp_candidates=len(icp_ms),
+        icp_ms_per_candidate=float(np.median(icp_ms)) if icp_ms else None,
+        host_syncs_per_keyframe_scan=float(np.mean(syncs[True])) if syncs[True] else None,
+        host_syncs_per_other_scan=float(np.mean(syncs[False])) if syncs[False] else None,
+        host_sync_sites=sync_sites_seen, p2p_launches=launches,
+        loaded_poses=len(loaded["poses"]), loaded_edges=len(loaded["edges"]))
+    log(f"mapping, {n_scans} scans of {points} points on {card}: "
+        f"{report['ms_per_scan']:.2f} ms/scan, {n_kf} keyframes, {loops_in_run} loops, "
+        f"loop_stats {mapper.loop_stats}, RMSE {rmse:.4f} m, PGO {len(pgo_ms)} solves "
+        f"median {report['pgo_ms_median']:.1f} ms, ICP {len(icp_ms)} candidates median "
+        f"{report['icp_ms_per_candidate']} ms, host syncs per scan "
+        f"{report['host_syncs_per_keyframe_scan']} (keyframe) / "
+        f"{report['host_syncs_per_other_scan']} (other), p2p_reduce launches {launches}")
+
+    report["async"] = run_mapping_async(mapper_mod, mcfg, nav0, data, gt)
+    return report
+
+
+def check_pgo_costs(where, results, flat=()):
+    """Every solve's costs are finite and its last round's is not above its
+    first's; returns them as an array (one fetch).  The solves numbered in
+    ``flat`` start from an optimized graph, where the cost is flat, so only
+    their comparison allows float32 rounding of the sum."""
+    import torch
+    all_costs = torch.stack([info["costs"] for _, info in results]).cpu().numpy()
+    for k, costs in enumerate(all_costs):
+        rtol = PGO_COST_RTOL if k in flat else 0.0
+        if not (np.isfinite(costs).all() and costs[-1] <= costs[0] * (1.0 + rtol)):
+            fail(f"{where}: PGO solve {k}'s costs {costs.tolist()} are not finite and "
+                 "non-increasing from first to last")
+    return all_costs
+
+
+def run_mapping_async(mapper_mod, mcfg, nav0, data, gt):
+    """The same drive with the background graph worker and the pipelined
+    fetch.  The worker prints what a job raises and goes on, and the poses
+    come from the odometry thread, so a finite trajectory says nothing of
+    the worker: the checks below hold it to having done every keyframe's
+    graph work itself, on the card, with nothing raised and nothing dropped."""
+    import dataclasses
+    import torch
+    n = len(data)
+    t0 = time.perf_counter()
+    amapper = mapper_mod.Mapper(dataclasses.replace(mcfg, async_graph=True, async_fetch=True),
+                                nav0)
+    timers = {name: EventTimer(mapper_mod, name)
+              for name in ("optimize", "icp_point_to_plane", "sc_query")}
+    for k, d in enumerate(data):
+        amapper.process_scan(*d[:5], stamp_us=int(k * 1e5))
+    amapper.flush()
+    dt = time.perf_counter() - t0
+    for t in timers.values():
+        t.restore()
+    worker = amapper._worker
+    amapper.close()
+    if worker.is_alive():
+        fail("mapping (async): the graph worker is still alive after close()")
+    if amapper.worker_errors:
+        fail(f"mapping (async): the graph worker's jobs raised {amapper.worker_errors!r}")
+    if "dropped_jobs" in amapper.loop_stats:
+        fail(f"mapping (async): graph jobs were dropped; loop_stats {amapper.loop_stats}")
+    n_kf = len(amapper.store)
+    if amapper.sc_ids != list(range(n_kf)):
+        fail(f"mapping (async): the worker added {len(amapper.sc_ids)} descriptors for "
+             f"{n_kf} keyframes")
+    for name, t in timers.items():
+        if not t.threads or set(t.threads) != {worker.name}:
+            fail(f"mapping (async): {name} ran {len(t.threads)} times on threads "
+                 f"{sorted(set(t.threads))}, expected at least once and only on {worker.name}")
+    if amapper.loop_stats["accepted"] < 1:
+        fail(f"mapping (async): no loop was accepted; loop_stats {amapper.loop_stats}")
+    icp_poses = torch.stack([torch.cat(out[:2]) for out in timers["icp_point_to_plane"].results])
+    if not bool(torch.isfinite(icp_poses).all()):
+        fail("mapping (async): an ICP on the worker thread gave a non-finite pose")
+    check_pgo_costs("mapping (async)", timers["optimize"].results)
+    atraj = amapper.trajectory()
+    if atraj.shape != (n, 4, 4) or not np.isfinite(atraj).all():
+        fail(f"mapping (async): trajectory of shape {atraj.shape} is not {n} finite poses")
+    rmse = float(np.sqrt(np.mean(np.sum((atraj[:, :3, 3] - gt[:, :3, 3]) ** 2, axis=1))))
+    if not rmse < MAPPING_RMSE_LIMIT_M:
+        fail(f"mapping (async): trajectory RMSE {rmse} m is not below {MAPPING_RMSE_LIMIT_M} m")
+    report = dict(scans=n, keyframes=n_kf, ms_per_scan=dt / n * 1e3, rmse_m=rmse,
+                  loops=len(amapper.loops), loop_stats=amapper.loop_stats,
+                  worker_errors=0, worker_pgo_solves=len(timers["optimize"].threads),
+                  worker_icp_candidates=len(timers["icp_point_to_plane"].threads),
+                  worker_sc_queries=len(timers["sc_query"].threads))
+    log(f"mapping (async_graph, async_fetch), {n} scans: {report['ms_per_scan']:.2f} ms/scan, "
+        f"{n_kf} keyframes and as many descriptors, {report['loops']} loops, loop_stats "
+        f"{amapper.loop_stats}, RMSE {rmse:.4f} m; on the worker thread {report['worker_sc_queries']} "
+        f"ScanContext queries, {report['worker_icp_candidates']} ICP verifications and "
+        f"{report['worker_pgo_solves']} PGO solves, none raised, none dropped; flush() and "
+        "close() returned, the worker has ended")
+    return report
+
+
+def run_points(dev, card, cfg, nav0, scans, gt, n_scans=N_POINTS):
+    """Phase 5: the LIO step with the raw-point map; returns its report."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam.lio import lio_init, lio_step
+    from lsd_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = cfg._replace(map_type="points", map_capacity=2 ** 17)
+    st = lio_init(cfg, nav0)
+    poses = []
+    p2p_reduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scan in scans[:n_scans]:
+        st, info = lio_step(cfg, st, *scan)
+        poses.append(st.nav.pos)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = p2p_reduce.launches
+    if launches != cfg.max_iters * n_scans:
+        fail(f"raw-point map: p2p_reduce launched {launches} times over {n_scans} scans, "
+             f"expected max_iters x scans = {cfg.max_iters * n_scans}")
+    if not all(bool(torch.isfinite(x).all()) for x in (*st.nav, st.P, st.map.points)):
+        fail("raw-point map: the filter state is not finite")
+    est = np.tile(np.eye(4), (n_scans, 1, 1))
+    est[:, :3, 3] = torch.stack(poses).cpu().numpy()
+    ate = ate_rmse(est, gt[:n_scans], warmup=5)
+    if not ate < ATE_LIMIT_M:
+        fail(f"raw-point map: ATE {ate} m is not below {ATE_LIMIT_M} m")
+    report = dict(card=card, scans=n_scans, points_per_scan=scans[0][0].shape[0],
+                  ms_per_scan=dt / n_scans * 1e3, ate_m=ate,
+                  num_valid=int(info["num_valid"]),
+                  map_voxels=int((st.map.keys >= 0).sum()), p2p_launches=launches)
+    log(f"lio_step with map_type='points', {n_scans} scans on {card}: "
+        f"{report['ms_per_scan']:.2f} ms/scan, ATE {ate:.5f} m, num_valid "
+        f"{report['num_valid']}, {report['map_voxels']} voxels, p2p_reduce launches {launches}")
+    return report
+
+
 def main() -> None:
     try:
         import torch
@@ -343,12 +593,21 @@ def main() -> None:
         f"ATE {ate:.5f} m, num_valid {int(info['num_valid'])}, "
         f"p2p_reduce launches {launches}")
 
-    print(json.dumps({"lio_step": {"card": card, "scans": N_BENCH,
-                                   "points_per_scan": CAP,
-                                   "scans_per_s": N_BENCH / dt,
-                                   "ms_per_scan": dt / N_BENCH * 1e3,
-                                   "ate_m": ate, "host_syncs_per_scan": syncs}}))
+    lio_report = {"card": card, "scans": N_BENCH, "points_per_scan": CAP,
+                  "scans_per_s": N_BENCH / dt, "ms_per_scan": dt / N_BENCH * 1e3,
+                  "ate_m": ate, "host_syncs_per_scan": syncs}
     p2p_report["launches"] = launches
+    del st
+
+    # ---- 4. the mapping path, 5. the raw-point LIO path --------------------
+    mapping_report = run_mapping(dev, card, cfg)
+    p2p_report["launches_mapping"] = mapping_report["p2p_launches"]
+    points_report = run_points(dev, card, cfg, nav0, scans, gt)
+    p2p_report["launches_points"] = points_report["p2p_launches"]
+
+    print(json.dumps({"lio_step": lio_report}))
+    print(json.dumps({"mapping": mapping_report}))
+    print(json.dumps({"lio_step_points": points_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,7 @@ def surfel_create(capacity: int = 2 ** 17, voxel_size: float = 0.5,
         keys=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
         coords=torch.zeros((3, capacity), dtype=torch.int32, device=dev),
         moments=torch.zeros((10, capacity), dtype=torch.float32, device=dev),
-        voxel_size=torch.tensor(voxel_size, dtype=torch.float32, device=dev),
+        voxel_size=torch.full((), voxel_size, dtype=torch.float32, device=dev),
     )
 
 

@@ -1,7 +1,9 @@
 """Tightly-coupled LiDAR-inertial odometry: iterated error-state Kalman
 filter on the 24-dim manifold state.
 
-Counterpart of ``lsd_tpu/slam/lio.py`` with the surfel map.  One scan step:
+Counterpart of ``lsd_tpu/slam/lio.py`` with either local map: the surfel
+map (per-voxel moments) or the raw-point voxel hash map (5-NN plane fits).
+One scan step:
 
   propagate IMU -> undistort scan -> voxel-downsample -> match planes ->
   iterate (fused point-to-plane reduction, ops/p2p.py; degeneracy gate;
@@ -15,12 +17,15 @@ sync per iteration after the first, plus one per scan.  The small dense algebra 
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.profiler import record_function
 
+from ..ops.hashmap import (VoxelHashMap, hashmap_create, hashmap_insert, hashmap_knn,
+                           hashmap_trim)
 from ..ops.p2p import p2p_reduce
+from ..ops.planefit import fit_planes
 from ..ops.surfel import SurfelMap, surfel_create, surfel_insert, surfel_match, surfel_trim
 from ..ops.voxelize import voxel_downsample
 from ..utils.device import DeviceLike, resolve_device
@@ -33,7 +38,7 @@ class LioConfig(NamedTuple):
     """Every field and default of the reference's ``LioConfig``, so configs
     carry over.  ``use_pallas_p2p`` has no effect here: the port always
     reduces through ``ops/p2p.py:p2p_reduce`` (the reference's
-    ``use_pallas_p2p=True`` semantics)."""
+    ``use_pallas_p2p=True`` semantics), with either map type."""
     # scan processing
     scan_voxel: float = 0.5          # downsample leaf for residual points
     ds_capacity: int = 8192          # residual point budget
@@ -54,7 +59,8 @@ class LioConfig(NamedTuple):
     research_thresh: float = 0.05    # re-match planes when the iterate moved this far
     degen_thresh: float = 10.0       # eigenvalue gate on the HtH pose block
     neighborhood: int = 7
-    map_type: str = "surfel"         # only "surfel" is ported
+    map_type: str = "surfel"         # "surfel" (moment voxels, fast) or
+                                     # "points" (raw-K voxels + 5-NN fit)
     use_pallas_p2p: bool = False     # no effect in the port (see above)
     est_extrinsic: bool = False
     est_gravity: bool = False
@@ -65,31 +71,28 @@ class LioConfig(NamedTuple):
 class LioState(NamedTuple):
     nav: NavState
     P: torch.Tensor              # (24, 24)
-    map: SurfelMap
+    map: Union[SurfelMap, VoxelHashMap]   # per cfg.map_type
     map_center: torch.Tensor     # (3,)
     initialized: torch.Tensor    # () bool — map seeded
     step_count: torch.Tensor     # () int32
 
 
-def _check_map_type(cfg: LioConfig) -> None:
-    if cfg.map_type != "surfel":
-        raise NotImplementedError(
-            f"map_type={cfg.map_type!r} is not ported yet; the raw-point map "
-            "is ROADMAP queue A item 7")
-
-
 def lio_init(cfg: LioConfig, nav: Optional[NavState] = None,
              device: DeviceLike = None) -> LioState:
     """Initial filter state; on ``nav``'s device if given, else on ``device``."""
-    _check_map_type(cfg)
     dev = nav.pos.device if nav is not None else resolve_device(device)
     P = torch.eye(ERR_DIM, dtype=torch.float32, device=dev) * 1e-4
     P[9:15, 9:15] = torch.eye(6, device=dev) * 1e-3    # bias uncertainty
     P[15:18, 15:18] = torch.eye(3, device=dev) * 1e-2  # gravity
+    if cfg.map_type == "surfel":
+        m = surfel_create(cfg.map_capacity, cfg.map_voxel, device=dev)
+    else:
+        m = hashmap_create(cfg.map_capacity, cfg.map_points_per_voxel, cfg.map_voxel,
+                           device=dev)
     return LioState(
         nav=nav if nav is not None else init_state(device=dev),
         P=P,
-        map=surfel_create(cfg.map_capacity, cfg.map_voxel, device=dev),
+        map=m,
         map_center=torch.zeros(3, dtype=torch.float32, device=dev),
         initialized=torch.tensor(False, device=dev),
         step_count=torch.tensor(0, dtype=torch.int32, device=dev),
@@ -106,10 +109,16 @@ def _update_mask(cfg: LioConfig, device: torch.device) -> torch.Tensor:
 
 
 def _match_planes(cfg: LioConfig, nav: NavState, pts_l: torch.Tensor,
-                  mask: torch.Tensor, m: SurfelMap):
-    """Plane association at pose ``nav``: (normals, d, plane_ok, plane_rms)."""
+                  mask: torch.Tensor, m: Union[SurfelMap, VoxelHashMap]):
+    """Plane association at pose ``nav``: (normals, d, plane_ok, plane_rms).
+    The raw-point map fits a plane to each point's 5 nearest map points and
+    reports no thickness (plane_rms = 0)."""
     pw = (pts_l @ nav.ext_rot.T + nav.ext_t) @ nav.rot.T + nav.pos
-    return surfel_match(m, pw, mask, cfg.plane_thresh)
+    if isinstance(m, SurfelMap):
+        return surfel_match(m, pw, mask, cfg.plane_thresh)
+    nbrs, nvalid = hashmap_knn(m, pw, mask, k=5, neighborhood=cfg.neighborhood)
+    normals, d, plane_ok = fit_planes(nbrs, nvalid, cfg.plane_thresh)
+    return normals, d, plane_ok, torch.zeros_like(d)
 
 
 def _gate_degenerate(cfg: LioConfig, HtH: torch.Tensor):
@@ -166,8 +175,8 @@ def p2p_weight(cfg: LioConfig, ds_mask: torch.Tensor, planes) -> torch.Tensor:
     return torch.where(ds_mask & plane_ok, inv_var, 0.0)
 
 
-def _iterate(cfg: LioConfig, m: SurfelMap, front: ScanFront, P_inv: torch.Tensor,
-             vel_obs: torch.Tensor, vel_obs_valid: torch.Tensor):
+def _iterate(cfg: LioConfig, m: Union[SurfelMap, VoxelHashMap], front: ScanFront,
+             P_inv: torch.Tensor, vel_obs: torch.Tensor, vel_obs_valid: torch.Tensor):
     """The Gauss-Newton iterations: (nav, gated HtH + velocity info of the
     last iteration, stats [n_valid, sum |r|, n_degenerate, n_weak])."""
     dev = P_inv.device
@@ -223,7 +232,7 @@ def _iterate(cfg: LioConfig, m: SurfelMap, front: ScanFront, P_inv: torch.Tensor
 
 
 def _update_map(cfg: LioConfig, st: LioState, front: ScanFront, mask: torch.Tensor,
-                nav: NavState) -> Tuple[SurfelMap, torch.Tensor]:
+                nav: NavState) -> Tuple[Union[SurfelMap, VoxelHashMap], torch.Tensor]:
     """Insert the scan at pose ``nav``; trim the map when the sensor moved
     ``recenter_thresh`` from its centre.  Returns (map, centre)."""
     if cfg.map_voxel == cfg.scan_voxel:
@@ -232,10 +241,14 @@ def _update_map(cfg: LioConfig, st: LioState, front: ScanFront, mask: torch.Tens
         ins_pts, ins_mask = voxel_downsample(front.pts_und, mask, cfg.map_voxel,
                                              cfg.ds_capacity)
     ins_w = (ins_pts[:, :3] @ nav.ext_rot.T + nav.ext_t) @ nav.rot.T + nav.pos
-    new_map = surfel_insert(st.map, ins_w, ins_mask)
+    if isinstance(st.map, SurfelMap):
+        insert_fn, trim_fn = surfel_insert, surfel_trim
+    else:
+        insert_fn, trim_fn = hashmap_insert, hashmap_trim
+    new_map = insert_fn(st.map, ins_w, ins_mask)
     moved = torch.linalg.norm(nav.pos - st.map_center) > cfg.recenter_thresh
     if bool(moved):                                              # host sync
-        new_map = surfel_trim(new_map, nav.pos, cfg.map_radius)
+        new_map = trim_fn(new_map, nav.pos, cfg.map_radius)
     return new_map, torch.where(moved, nav.pos, st.map_center)
 
 
@@ -248,7 +261,6 @@ def lio_step(cfg: LioConfig, st: LioState,
     """Process one scan.  points (N, 3) lidar frame; stamps (N,) sec from
     scan start; imu (M, 7) [t_sec_rel, gyro, accel].  All inputs on the
     state's device.  Returns (state, info)."""
-    _check_map_type(cfg)
     dev = st.P.device
     if vel_obs is None:
         vel_obs = torch.zeros(3, dtype=torch.float32, device=dev)

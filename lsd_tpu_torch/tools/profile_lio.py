@@ -35,12 +35,35 @@ from torch.profiler import ProfilerActivity, profile
 from ..geometry import so3
 from ..sim import CircleSim, SimConfig
 from ..slam.lio import LioConfig, lio_init, lio_step
+from ..slam.mapper import MapperConfig
 from ..slam.state import init_state
 from ..utils.device import resolve_device
 
 SPAN = "lio_step/"
 BENCH_CFG = LioConfig(ds_capacity=16384, map_capacity=2 ** 18,
                       scan_voxel=0.4, map_voxel=0.4, max_iters=4)
+MAPPING_SCANS = 95      # 1.2 times round mapping_run's circle: the loops close after ~80
+
+
+def nav_at_start(sim, dev):
+    """The navigation state of ``sim``'s first pose, on ``dev``."""
+    R, p = sim.pose(0.0)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return init_state(device=dev)._replace(pos=f(p), quat=so3.matrix_to_quat(f(R)),
+                                           vel=f(sim.velocity(0.0)))
+
+
+def mapping_run(dev, n_scans=MAPPING_SCANS, points=2 ** 15, lio=BENCH_CFG, **mapper_kw):
+    """The mapping path that ``chip_smoke.py`` drives and ``profile_mapper``
+    traces: (sim, scans as host arrays, nav0 on ``dev``, MapperConfig).  An
+    8 m circle at 0.8 rad/s (the world of the reference's mapping test), the
+    LIO at ``bench.py``'s size, a keyframe every 1.5 m, PGO every 8
+    keyframes; ``mapper_kw`` sets further ``MapperConfig`` fields."""
+    sim = CircleSim(SimConfig(radius=8.0, omega=0.8, n_scans=n_scans, points_per_scan=points,
+                              point_noise=0.01, seed=21))
+    data = sim.generate(capacity=points, imu_capacity=16)
+    cfg = MapperConfig(lio=lio, keyframe_delta_trans=1.5, optimize_every=8, **mapper_kw)
+    return sim, data, nav_at_start(sim, dev), cfg
 
 
 def _card() -> str:
@@ -56,14 +79,15 @@ def sync_sites(fn):
     not the notice that torch gives once per process when the mode is first
     switched on ("...is a prototype feature...")."""
     sites = collections.Counter()
-    pkg = str(Path(__file__).resolve().parent.parent)
+    tools = str(Path(__file__).resolve().parent)
+    pkg = str(Path(tools).parent)
 
     def record(message, category, filename, lineno, file=None, line=None):
         if "called a synchronizing cuda operation" not in str(message).lower():
             return
         stack = traceback.extract_stack()[:-1]
         ours = [f for f in stack if f.filename.startswith(pkg)
-                and not f.filename.endswith("profile_lio.py")]
+                and not f.filename.startswith(tools)]
         frames = ours[-1:] or stack[-3:]
         sites[" < ".join(f"{Path(f.filename).name}:{f.lineno}" + ("" if ours else f" {f.name}")
                          for f in reversed(frames))] += 1
@@ -78,6 +102,56 @@ def sync_sites(fn):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return out, dict(sites.most_common())
+
+
+def trace_report(prof, n: int, wall_s: float, prefixes) -> dict:
+    """Per-scan numbers of a profiler trace over ``n`` scans that took
+    ``wall_s`` seconds: wall and device-busy ms, idle share, launches, and
+    for each ``record_function`` span whose name starts with one of
+    ``prefixes`` its host ms and the kernel launches issued inside it
+    (on any thread), plus the kernels and host operators that take the most
+    time."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    prefixes = tuple(prefixes)
+    events = prof.key_averages()
+    # the spans also appear on the device as annotations covering their
+    # range; they are not kernels
+    kernels = sorted((e for e in events if e.device_type == cuda
+                      and not e.key.startswith(prefixes)),
+                     key=lambda e: -e.self_device_time_total)
+    dev_total = sum(e.self_device_time_total for e in kernels)
+    host_ops = sorted((e for e in events if e.device_type == cpu
+                       and not e.key.startswith(prefixes)),
+                      key=lambda e: -e.self_cpu_time_total)[:25]
+    raw = prof.events()
+    launches = np.sort(np.asarray([e.time_range.start for e in raw
+                                   if e.name == "cudaLaunchKernel"], float))
+    by_name = collections.defaultdict(list)
+    for e in raw:
+        if e.device_type == cpu and e.name.startswith(prefixes):
+            by_name[e.name].append((e.time_range.start, e.time_range.end))
+    spans = {}
+    for name, ranges in sorted(by_name.items()):
+        r = np.asarray(ranges, float)
+        inside = np.searchsorted(launches, r[:, 1], "right") - np.searchsorted(launches, r[:, 0], "left")
+        spans[name] = dict(calls_per_scan=len(r) / n,
+                           host_ms=float((r[:, 1] - r[:, 0]).sum()) / 1e3 / n,
+                           launches=float(inside.sum()) / n,
+                           host_ms_per_call=float((r[:, 1] - r[:, 0]).mean()) / 1e3,
+                           launches_per_call=float(inside.mean()))
+    wall_ms = wall_s / n * 1e3
+    busy_ms = dev_total / 1e3 / n
+    return dict(
+        wall_ms_per_scan=wall_ms, device_busy_ms_per_scan=busy_ms,
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        kernel_launches_per_scan=sum(e.count for e in kernels) / n,
+        spans=spans,
+        kernels=[dict(name=e.key[:120], calls_per_scan=e.count / n,
+                      device_ms_per_scan=e.self_device_time_total / 1e3 / n)
+                 for e in kernels[:25]],
+        host_ops=[dict(name=e.key, calls_per_scan=e.count / n,
+                       self_host_ms_per_scan=e.self_cpu_time_total / 1e3 / n)
+                  for e in host_ops])
 
 
 def main(argv=None) -> dict:
@@ -95,12 +169,8 @@ def main(argv=None) -> dict:
                               point_noise=0.01, seed=7))
     data = sim.generate(capacity=cap, imu_capacity=16)
     scans = [tuple(torch.as_tensor(a, device=dev) for a in d[:5]) for d in data]
-    R, p = sim.pose(0.0)
-    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    nav0 = init_state(device=dev)._replace(pos=f(p), quat=so3.matrix_to_quat(f(R)),
-                                           vel=f(sim.velocity(0.0)))
     cfg = BENCH_CFG
-    st = lio_init(cfg, nav0)
+    st = lio_init(cfg, nav_at_start(sim, dev))
     for scan in scans[:args.warm]:
         st, _ = lio_step(cfg, st, *scan)
     torch.cuda.synchronize()
@@ -115,45 +185,9 @@ def main(argv=None) -> dict:
     n = len(traced)
     syncs = sync_sites(lambda: lio_step(cfg, st, *scans[-1]))[1]
 
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    events = prof.key_averages()
-    # the spans also appear on the device as annotations covering their
-    # range; they are not kernels
-    kernels = sorted((e for e in events if e.device_type == cuda
-                      and not e.key.startswith(SPAN)),
-                     key=lambda e: -e.self_device_time_total)
-    dev_total = sum(e.self_device_time_total for e in kernels)
-    host_ops = sorted((e for e in events if e.device_type == cpu
-                       and not e.key.startswith(SPAN)),
-                      key=lambda e: -e.self_cpu_time_total)[:25]
-    # host time and kernel launches inside each span
-    raw = prof.events()
-    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in raw
-              if e.device_type == cpu and e.name.startswith(SPAN)]
-    spans = collections.defaultdict(lambda: dict(host_ms=0.0, launches=0.0))
-    for name, a, b in ranges:
-        spans[name]["host_ms"] += (b - a) / 1e3 / n
-    for e in raw:
-        if e.name == "cudaLaunchKernel":
-            for name, a, b in ranges:
-                if a <= e.time_range.start <= b:
-                    spans[name]["launches"] += 1.0 / n
-    wall_ms = wall / n * 1e3
-    busy_ms = dev_total / 1e3 / n
-    report = dict(
-        card=_card(), scans=n, points_per_scan=cap,
-        wall_ms_per_scan=wall_ms, device_busy_ms_per_scan=busy_ms,
-        device_idle_share=1.0 - busy_ms / wall_ms,
-        kernel_launches_per_scan=sum(e.count for e in kernels) / n,
-        spans=dict(spans),
-        kernels=[dict(name=e.key[:120], calls_per_scan=e.count / n,
-                      device_ms_per_scan=e.self_device_time_total / 1e3 / n)
-                 for e in kernels[:25]],
-        host_ops=[dict(name=e.key, calls_per_scan=e.count / n,
-                       self_host_ms_per_scan=e.self_cpu_time_total / 1e3 / n)
-                  for e in host_ops],
-        host_syncs_per_scan=sum(syncs.values()), host_sync_sites=syncs,
-    )
+    report = dict(card=_card(), scans=n, points_per_scan=cap,
+                  **trace_report(prof, n, wall, (SPAN,)),
+                  host_syncs_per_scan=sum(syncs.values()), host_sync_sites=syncs)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "profile_lio.json").write_text(json.dumps(report, indent=1))

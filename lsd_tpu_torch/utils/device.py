@@ -6,8 +6,9 @@ machine without a card raises instead of falling back quietly.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -26,3 +27,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
 
+
+def to_device(a: Union[np.ndarray, torch.Tensor, list, tuple, float, int, bool],
+              device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Host data as a tensor on ``device`` without stalling the host.
+
+    A tensor already there passes through without a copy.  Host data bound
+    for a card goes through pinned memory as a non-blocking copy: a plain
+    copy from pageable memory makes the host wait for all queued work of
+    the stream (a host sync per upload)."""
+    if isinstance(a, torch.Tensor) and a.device == device:
+        return a if dtype is None else a.to(dtype)
+    t = torch.as_tensor(a, dtype=dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -13,6 +13,13 @@ version through a matmul); n_valid exact (both round each operation alike,
 the kernel being built without FMA contraction); two launches bitwise equal,
 and so a CUDA-graph replay and a direct call.  Each call is one launch of
 the kernel.
+
+The mapping path's PyTorch ops run on the card as on the CPU:
+``hashmap_insert`` gives the same integers and points (integer scatter-min
+and scatter-add are order-free), ``optimize`` and ``icp_point_to_plane`` the
+same poses within atol 1e-4 (float atomics in the scatter-adds and another
+order of the reductions; 2e-3 for ICP against a raw-point target, whose
+plane fits are ill-conditioned in float32), and neither makes a host sync.
 """
 import numpy as np
 import pytest
@@ -156,21 +163,16 @@ def test_p2p_wrapper_rejects_mixed_devices(cuda):
 
 def test_lio_step_on_card_matches_cpu(cuda):
     """Six small scans on the card and on the CPU end within 1e-3 m."""
-    from lsd_tpu_torch.geometry import so3
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     from lsd_tpu_torch.sim import CircleSim, SimConfig
     from lsd_tpu_torch.slam.lio import LioConfig, lio_init, lio_step
-    from lsd_tpu_torch.slam.state import init_state
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
     sim = CircleSim(SimConfig(n_scans=6, points_per_scan=2048, point_noise=0.01, seed=5))
     data = sim.generate(capacity=2048, imu_capacity=16)
-    R0, p0 = sim.pose(0.0)
     cfg = LioConfig(ds_capacity=1024, map_capacity=2 ** 13)
     final = {}
     for dev in ("cpu", cuda):
-        f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        nav0 = init_state(device=dev)._replace(pos=f(p0), quat=so3.matrix_to_quat(f(R0)),
-                                               vel=f(sim.velocity(0.0)))
-        st = lio_init(cfg, nav0)
+        st = lio_init(cfg, nav_at_start(sim, dev))
         before = p2p_reduce.launches
         for tup in data:
             st, _ = lio_step(cfg, st, *[torch.as_tensor(a, device=dev) for a in tup[:5]])
@@ -178,3 +180,193 @@ def test_lio_step_on_card_matches_cpu(cuda):
             assert p2p_reduce.launches - before == cfg.max_iters * len(data)
         final[str(dev)] = st.nav.pos.cpu().numpy()
     np.testing.assert_allclose(final["cuda:0"], final["cpu"], atol=1e-3)
+
+
+# ---- the mapping path's ops: the card against the CPU ----------------------
+
+
+def _room(rng, n):
+    """Ground and four walls within 8 m of the origin."""
+    k = n // 5
+    parts = [np.stack([rng.uniform(-8, 8, n - 4 * k), rng.uniform(-8, 8, n - 4 * k),
+                       np.zeros(n - 4 * k)], 1)]
+    for axis, at in ((0, -8.0), (0, 8.0), (1, -8.0), (1, 7.0)):
+        w = np.stack([rng.uniform(-8, 8, k), rng.uniform(-8, 8, k), rng.uniform(0, 3, k)], 1)
+        w[:, axis] = at
+        parts.append(w)
+    return (np.concatenate(parts) + rng.normal(0, 0.005, (n, 3))).astype(np.float32)
+
+
+@pytest.mark.parametrize("cap,voxel,min_voxels,min_full", [
+    (2 ** 14, 0.5, 2000, 300), (2 ** 11, 0.5, 1800, 300), (2 ** 14, 2.0, 200, 200)])
+def test_hashmap_insert_on_card_equals_cpu(cuda, cap, voxel, min_voxels, min_full):
+    """Three scans into one map; the small table crowds the probe window
+    (over 85 % of its slots taken), the large voxels fill past K points
+    (nearly every voxel full).  ``min_voxels`` and ``min_full`` guard each
+    case's occupancy and its count of full voxels, so that a case goes on
+    testing what it is there for."""
+    from lsd_tpu_torch.ops.hashmap import hashmap_create, hashmap_insert, hashmap_knn
+    rng = np.random.default_rng(0)
+    maps = {}
+    for dev in ("cpu", cuda):
+        m = hashmap_create(cap, 8, voxel, device=dev)
+        r = np.random.default_rng(1)
+        for _ in range(3):
+            pts = _room(r, 4096)
+            mask = r.random(4096) > 0.1
+            m = hashmap_insert(m, torch.as_tensor(pts, device=dev),
+                               torch.as_tensor(mask, device=dev))
+        maps[str(dev)] = m
+    a, b = maps["cpu"], maps["cuda:0"]
+    for name in ("keys", "coords", "counts", "points"):
+        assert torch.equal(getattr(a, name), getattr(b, name).cpu()), name
+    assert int((a.keys >= 0).sum()) > min_voxels and int((a.counts == 8).sum()) > min_full
+    q = _room(rng, 1024)
+    qm = np.ones(1024, bool)
+    na, va = hashmap_knn(a, torch.as_tensor(q), torch.as_tensor(qm), k=5, neighborhood=7)
+    nb, vb = hashmap_knn(b, torch.as_tensor(q, device=cuda), torch.as_tensor(qm, device=cuda),
+                         k=5, neighborhood=7)
+    assert torch.equal(va, vb.cpu())
+    torch.testing.assert_close(na[va], nb.cpu()[va], rtol=0, atol=1e-6)
+
+
+def _graph_builder(n=64, seed=0):
+    from lsd_tpu_torch.geometry import np_so3
+    from lsd_tpu_torch.slam.graph_builder import PoseGraphBuilder
+    rng = np.random.default_rng(seed)
+
+    def pose(R, p):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, p
+        return T
+    th = np.linspace(0, 2.2 * np.pi, n)
+    gt = [pose(np_so3.rpy_to_matrix(0.0, 0.02 * np.cos(a), a + np.pi / 2),
+               [10 * np.cos(a), 10 * np.sin(a), 1.8]) for a in th]
+    b = PoseGraphBuilder()
+    drift = np.eye(4)
+    for k, T in enumerate(gt):
+        drift = drift @ pose(np_so3.exp_so3(rng.normal(0, 2e-3, 3)), rng.normal(0, 0.02, 3))
+        b.add_node(T @ drift, fixed=(k == 0))
+        if k:
+            b.add_se3_edge(k - 1, k, np.linalg.inv(gt[k - 1]) @ gt[k], 4.0e4, 1.0e4)
+    b.add_se3_edge(2, n - 4, np.linalg.inv(gt[2]) @ gt[n - 4], 300.0, 300.0)
+    b.add_se3_edge(5, 30, pose(np.eye(3), [3.0, 1.0, 0.0]), 200.0, 200.0)     # a wrong loop
+    for k in range(0, n, 4):
+        b.add_gps_prior(k, gt[k][:3, 3] + (9.0 if k == 20 else 0.0), xy_only=True, info=4.0)
+    for k in range(3, n, 7):
+        b.add_floor_prior(k, 1.8, 25.0, 10.0)
+        b.add_orientation_prior(k, gt[k], info=1.0)
+    return b
+
+
+def test_optimize_on_card_matches_cpu_and_makes_no_sync(cuda):
+    from lsd_tpu_torch.slam.posegraph import PgoConfig, optimize
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    b = _graph_builder()
+    out_c, info_c = optimize(b.to_data(device="cpu"), PgoConfig())
+    data = b.to_data(device=cuda)
+    optimize(data, PgoConfig(outer_iters=1, cg_iters=2))          # warm up
+    (out_g, info_g), sites = sync_sites(lambda: optimize(data, PgoConfig()))
+    assert sites == {}, f"optimize made host syncs: {sites}"
+    torch.testing.assert_close(out_g.nodes.pos.cpu(), out_c.nodes.pos, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out_g.nodes.quat.cpu(), out_c.nodes.quat, rtol=0, atol=1e-4)
+    assert int(info_g["gps_inliers"]) == int(info_c["gps_inliers"]) == 15
+    costs = info_g["costs"].cpu()
+    torch.testing.assert_close(costs, info_c["costs"], rtol=1e-3, atol=1e-6)
+    assert bool(torch.isfinite(costs).all()) and float(costs[-1]) < float(costs[0])
+
+
+@pytest.mark.parametrize("kind", ["surfel", "points"])
+def test_icp_on_card_matches_cpu_and_makes_no_sync(cuda, kind):
+    from lsd_tpu_torch.geometry import np_so3
+    from lsd_tpu_torch.ops.hashmap import hashmap_create, hashmap_insert
+    from lsd_tpu_torch.ops.surfel import surfel_create, surfel_insert
+    from lsd_tpu_torch.slam.registration import icp_point_to_plane
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    rng = np.random.default_rng(0)
+    target = _room(rng, 16384)
+    R = np_so3.rpy_to_matrix(0.01, -0.02, 0.3)
+    t_true = np.array([1.0, -0.5, 0.2])
+    source = ((_room(rng, 4096) - t_true) @ R).astype(np.float32)
+    q0 = np_so3.matrix_to_quat(R @ np_so3.exp_so3([0.01, -0.02, 0.05])).astype(np.float32)
+    t0 = (t_true + [0.15, -0.1, 0.05]).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        f = lambda a: torch.as_tensor(a, device=dev)
+        ones = torch.ones(len(target), dtype=torch.bool, device=dev)
+        if kind == "surfel":
+            m = surfel_insert(surfel_create(2 ** 15, 0.5, device=dev), f(target), ones)
+        else:
+            m = hashmap_insert(hashmap_create(2 ** 15, 8, 0.5, device=dev), f(target), ones)
+        args = (m, f(source), torch.ones(4096, dtype=torch.bool, device=dev), f(q0), f(t0))
+        kw = dict(iters=20, plane_thresh=0.1, max_dist=0.5, neighborhood=7, min_points=4)
+        if dev == "cpu":
+            out["cpu"] = icp_point_to_plane(*args, **kw)
+        else:
+            icp_point_to_plane(*args, **dict(kw, iters=1))         # warm up
+            out["cuda"], sites = sync_sites(lambda: icp_point_to_plane(*args, **kw))
+            assert sites == {}, f"icp_point_to_plane made host syncs: {sites}"
+    (qc, tc, ic), (qg, tg, ig) = out["cpu"], out["cuda"]
+    # the raw-point target's 5-point plane fits are ill-conditioned in
+    # float32 (ROADMAP queue C) and the card's batched LU rounds otherwise
+    # than LAPACK, so the two alignments settle a millimetre apart
+    atol = 1e-4 if kind == "surfel" else 2e-3
+    torch.testing.assert_close(qg.cpu(), qc, rtol=0, atol=atol)
+    torch.testing.assert_close(tg.cpu(), tc, rtol=0, atol=atol)
+    assert abs(float(ig["n_inliers"]) - float(ic["n_inliers"])) <= (1 if kind == "surfel" else 2)
+    assert float(np.linalg.norm(tg.cpu().numpy() - t_true)) < 0.02
+    assert float(ig["inlier_ratio"]) > 0.9
+
+
+def test_mapper_on_card_matches_cpu(cuda):
+    """Twelve small scans through ``Mapper`` on the card and on the CPU: the
+    same keyframes, poses within 2e-3 m, and a map that saves and loads."""
+    import tempfile
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam.lio import LioConfig
+    from lsd_tpu_torch.slam.map_io import load_map
+    from lsd_tpu_torch.slam.mapper import Mapper, MapperConfig
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    sim = CircleSim(SimConfig(radius=8.0, omega=0.8, n_scans=12, points_per_scan=2048,
+                              point_noise=0.01, seed=21))
+    data = sim.generate(capacity=2048, imu_capacity=16)
+    cfg = MapperConfig(lio=LioConfig(ds_capacity=1024, map_capacity=2 ** 13),
+                       keyframe_delta_trans=0.5, optimize_every=4, keyframe_cloud_cap=2048,
+                       loop_min_distance=3.0, loop_map_capacity=2 ** 13, loop_map_voxel=1.0)
+    runs = {}
+    for dev in ("cpu", cuda):
+        m = Mapper(cfg, nav_at_start(sim, dev))
+        for k, d in enumerate(data):
+            m.process_scan(*d[:5], stamp_us=int(k * 1e5))
+        with tempfile.TemporaryDirectory() as tmp:
+            m.save(tmp)
+            loaded = load_map(tmp)
+        assert len(loaded["poses"]) == len(m.store)
+        runs[str(dev)] = m
+    a, b = runs["cpu"], runs["cuda:0"]
+    assert len(a.store) == len(b.store) > 8 and a.loop_stats == b.loop_stats
+    np.testing.assert_allclose(b.trajectory(), a.trajectory(), atol=2e-3)
+    for ka, kb in zip(a.store.frames, b.store.frames):
+        np.testing.assert_allclose(kb.pose, ka.pose, atol=2e-3)
+
+    # the same drive with the graph worker and the pipelined fetch: the
+    # worker prints what a job raises and goes on, so hold it to having done
+    # every keyframe's graph work on the card, the loop gates included
+    import dataclasses
+    nav0 = nav_at_start(sim, cuda)
+    m = Mapper(dataclasses.replace(cfg, async_graph=True, async_fetch=True), nav0)
+    for k, d in enumerate(data):
+        m.process_scan(*d[:5], stamp_us=int(k * 1e5))
+    m.flush()
+    worker = m._worker
+    m.close()
+    assert not worker.is_alive()
+    assert m.worker_errors == [] and "dropped_jobs" not in m.loop_stats
+    assert m.sc_ids == list(range(len(m.store))) and len(m.store) == len(b.store)
+    assert m.loop_stats["accepted"] >= 1            # ScanContext, ICP and the gates ran there
+    assert any(not np.array_equal(kf.pose, kf.odom) for kf in m.store.frames)   # a PGO ran
+    assert m.trajectory().shape == (12, 4, 4) and np.isfinite(m.trajectory()).all()
+    # two runs on the card are not bitwise equal (float atomics in the surfel
+    # map's scatter-adds); the odometry does not depend on the graph thread
+    for ka, kb in zip(b.store.frames, m.store.frames):
+        np.testing.assert_allclose(kb.odom, ka.odom, atol=1e-4)
