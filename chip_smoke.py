@@ -27,8 +27,12 @@ Phases, in order; any failure exits non-zero:
    synchronous; then ``save()`` and ``load_map``.  Checks, the reference
    test's own bars: more than 15 keyframes, at least one accepted loop,
    trajectory RMSE against ground truth < 0.3 m, every PGO's cost finite
-   and its last round's not above its first's, the loaded map whole, and the p2p
-   kernel launched ``max_iters`` times per scan.  Then the same 95 scans
+   and its last round's not above its first's (``save()``'s solve starts
+   from an optimized graph, where the float32 costs only wander: the cost
+   before and after it is compared in float64; a drive's first solve, of a
+   chain with no loop yet, starts at zero cost and must stay under the
+   rounding floor), the loaded map whole, and
+   the p2p kernel launched ``max_iters`` times per scan.  Then the same 95 scans
    with the background graph worker and the pipelined fetch, ending in a
    clean ``flush()`` and ``close()``: the worker raised nothing, dropped no
    job, added a descriptor for every keyframe, and every ScanContext query,
@@ -37,6 +41,37 @@ Phases, in order; any failure exits non-zero:
 5. The raw-point LIO path: 30 of phase 2's scans with
    ``map_type="points"`` (finite state, ATE < 0.1 m, the p2p kernel
    launched ``max_iters`` times per scan).
+6. The localization path at full width, on the map directory phase 4 saved:
+   ``lsd_tpu_torch.slam.localization.Localizer`` with ``LocalizerConfig()``
+   defaults (the side LIO on: 8,192 residual points, 3 iterations; tracking
+   scan downsampled to 8,192 at 0.4 m; NDT map of 2**16 slots at 1 m, surfel
+   map of 2**17 at 0.5 m), a pose hint ~1 m off, then 70 scans of 32,768
+   points that the mapping run did not see, from rest up to the mapping
+   run's speed, each with its stamps, its 16 IMU samples and the newest
+   sample, as the runtime feeds them.  Checks: initialised from the hint,
+   every later scan ``tracking``, position RMSE against the simulator's
+   truth after the first 3 poses < 1.0 m and the last four errors within
+   0.1 m of each other (the reference test's bars), the side LIO's
+   increments in use after its 10 warm-up scans, at least one recentre of
+   the local map, and the p2p kernel launched 3 times per scan; the kernel
+   is then held against its plain version at this path's shape too (8,192
+   points, on the side LIO's own state).  Then the drive's first 25 scans
+   without stamps and IMU batch (IMU-driven prediction, 15 NDT searches),
+   same bars, no p2p launch.  Reported and not judged: both modes on the
+   reference test's own drive, begun at the mapping run's speed (a filter
+   that starts cold at 6.4 m/s is a weak spot of the reference, which the
+   port reproduces), and global relocalization without a hint through
+   ``Localizer.process_scan`` on a fresh localizer, for the drive's last
+   scan, for the sweep a keyframe was made from and for that keyframe's
+   stored cloud (the ring world is ambiguous to ScanContext).  Last, ``localize_track_step`` alone, 50 calls with a
+   fetch each and 50 with one fetch at the end, which must make no host
+   sync.
+7. RTK mapping: ``RtkMapper`` over phase 4's scans with fixes made from the
+   simulator's poses through ``geometry/utm.py`` (at least 20 keyframes,
+   every scan's pose equal to its interpolated fix); and ``IcpOdometry``
+   with its default config on 25 scans of 32,768 points of the reference
+   test's slow 10 m circle (relative-motion ATE after the first two scans
+   < 0.35 m).
 
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
@@ -59,9 +94,21 @@ CAP, IMU_CAP = 2 ** 15, 16
 ATE_LIMIT_M = 0.1
 N_MAPPING, N_POINTS = 95, 30
 MAPPING_RMSE_LIMIT_M = 0.3
-PGO_COST_RTOL = 1e-4                # float32 rounding of a converged cost (save()'s solve)
+# allowed relative rise of the float64 cost over a solve that starts from an
+# optimized graph (save()'s): see check_pgo_costs.  The poses come back in
+# float32, and rounding them alone moved that cost by -8.6e-5 ... +9.6e-5 in
+# eight runs on an H100 80GB HBM3 at 700 W; the most it could move it is
+# printed beside each reading (~1e-2).
+PGO_FLAT_COST_RTOL = 1e-3
 SYNC_COUNT_SCANS = range(40, 46)    # mapping scans whose host syncs are counted
 N_TIMING = 100                      # launches per timing (median reported)
+N_LOC, N_LOC_IMU, N_TRACK_CALLS = 70, 25, 50
+LOC_T_START = 0.037                 # keeps the drive off the stamps the mapping run saw
+N_LOC_CRUISE, N_LOC_CRUISE_IMU, CRUISE_T_START = 25, 15, 3.037
+LOC_RMSE_LIMIT_M, LOC_TAIL_STEP_M = 1.0, 0.1
+LOC_SYNC_SCANS = range(40, 46)      # localization scans whose host syncs are counted
+N_ICP_ODOM, ICP_ODOM_ATE_LIMIT_M = 25, 0.35
+RTK_MIN_KEYFRAMES, RTK_POSE_ATOL_M = 20, 1e-4
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -102,13 +149,14 @@ def time_ms(fn, n=N_TIMING):
     return float(np.median(times))
 
 
-def device_ms(fn, match="", n=N_TIMING, tries=5):
+def device_ms(fn, match="", n=N_TIMING, tries=5, required=True):
     """(device ms, kernels) per ``fn()``: the summed time and the count of
     the kernels whose name contains ``match`` that n calls launch, from the
     profiler's device trace, over n.  The profiler now and then drops a
     couple of kernel records from a trace, so only a trace that holds the
     same whole number of kernels for every call counts; another is taken
-    again, up to ``tries`` times."""
+    again, up to ``tries`` times.  If none is whole the run fails, or, when
+    the time is not ``required``, (None, 0) is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -128,8 +176,12 @@ def device_ms(fn, match="", n=N_TIMING, tries=5):
                 log(f"the profiler dropped records of {match or 'all'!r} kernels in "
                     f"{k} trace(s), taken again")
             return sum(e.self_device_time_total for e in ev) / 1e3 / n, per_call
-    fail(f"the profiler recorded {count} kernels matching {match!r} for {n} calls "
-         f"in the last of {tries} traces")
+    msg = (f"the profiler recorded {count} kernels matching {match!r} for {n} calls "
+           f"in the last of {tries} traces")
+    if required:
+        fail(msg)
+    log(msg + "; no device time taken")
+    return None, 0
 
 
 def card_line() -> str:
@@ -166,8 +218,10 @@ def p2p_inputs(cfg, st, scan):
             nav.rot, nav.ext_rot, nav.ext_t, nav.pos)
 
 
-def check_p2p(args, max_resid, report):
-    """Hold the p2p kernel against its plain version; time both."""
+def compare_p2p(args, max_resid):
+    """Hold the p2p kernel against its plain version on ``args``, with and
+    without the extrinsic block, on a ragged length, all points masked, and
+    in the 8-block cluster; returns the largest absolute error."""
     import torch
     from lsd_tpu_torch.ops.p2p import _launch, launch_shape, p2p_reduce, p2p_reduce_plain
 
@@ -217,7 +271,17 @@ def check_p2p(args, max_resid, report):
         if not ok:
             fail(f"p2p_reduce {name}: kernel disagrees with its plain version")
         max_err = max(max_err, err_H, err_r)
+    return max_err
+
+
+def check_p2p(args, max_resid, report):
+    """Hold the p2p kernel against its plain version; time both."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import _launch, launch_shape, p2p_reduce, p2p_reduce_plain
+
+    max_err = compare_p2p(args, max_resid)
     check_p2p_graph(args, max_resid)
+    blocks, threads = launch_shape(args[0].device)
 
     # times at the main path's shape and flag: device time per call of the
     # kernel (of all the plain version's kernels), and each call's time
@@ -283,38 +347,51 @@ def check_p2p_graph(args, max_resid):
     log("p2p_reduce: CUDA-graph replay equals a direct call bitwise, twice")
 
 
-class EventTimer:
-    """Wraps a function of ``module`` so that each call runs between two
-    CUDA events; ``ms()`` gives the device-side milliseconds of each call."""
+class CallTimer:
+    """Replaces ``owner.name`` by a wrapper that times each call, until
+    ``restore()``: between two CUDA events (``ms()`` then gives device-side
+    milliseconds) or, with ``host=True``, on the host clock between two
+    synchronizes.  Keeps each call's arguments, result and thread."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.fn = module, name, getattr(module, name)
-        self.events, self.results, self.threads = [], [], []
-        setattr(module, name, self)
+    def __init__(self, owner, name, host=False):
+        self.owner, self.name, self.fn, self.host = owner, name, getattr(owner, name), host
+        self.spans, self.args, self.results, self.threads = [], [], [], []
+        setattr(owner, name, self)
 
     def __call__(self, *args, **kwargs):
         import torch
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = self.fn(*args, **kwargs)
-        b.record()
-        self.events.append((a, b))
+        if self.host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.spans.append((time.perf_counter() - t0) * 1e3)
+        else:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.fn(*args, **kwargs)
+            b.record()
+            self.spans.append((a, b))
+        self.args.append(args)
         self.results.append(out)
         self.threads.append(threading.current_thread().name)
         return out
 
     def restore(self):
-        setattr(self.module, self.name, self.fn)
+        setattr(self.owner, self.name, self.fn)
 
     def ms(self):
         import torch
+        if self.host:
+            return list(self.spans)
         torch.cuda.synchronize()
-        return [a.elapsed_time(b) for a, b in self.events]
+        return [a.elapsed_time(b) for a, b in self.spans]
 
 
-def run_mapping(dev, card, lio_cfg, n_scans=N_MAPPING, points=CAP):
-    """Phase 4: the mapping path; returns its report."""
+def run_mapping(dev, card, lio_cfg, map_dir, n_scans=N_MAPPING, points=CAP):
+    """Phase 4: the mapping path, its map saved into ``map_dir``; returns
+    (report, the simulator, the scans)."""
     import torch
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     from lsd_tpu_torch.slam import mapper as mapper_mod
@@ -322,11 +399,11 @@ def run_mapping(dev, card, lio_cfg, n_scans=N_MAPPING, points=CAP):
     from lsd_tpu_torch.tools.profile_lio import mapping_run, sync_sites
 
     t0 = time.perf_counter()
-    _, data, nav0, mcfg = mapping_run(dev, n_scans, points, lio_cfg)
+    sim, data, nav0, mcfg = mapping_run(dev, n_scans, points, lio_cfg)
     log(f"mapping: made {len(data)} scans of {points} points in {time.perf_counter() - t0:.1f} s")
     mapper = mapper_mod.Mapper(mcfg, nav0)
-    pgo = EventTimer(mapper_mod, "optimize")
-    icp = EventTimer(mapper_mod, "icp_point_to_plane")
+    pgo = CallTimer(mapper_mod, "optimize")
+    icp = CallTimer(mapper_mod, "icp_point_to_plane")
     syncs = {True: [], False: []}                  # by is_keyframe
     sync_sites_seen = {}
     p2p_reduce.launches = 0
@@ -349,9 +426,8 @@ def run_mapping(dev, card, lio_cfg, n_scans=N_MAPPING, points=CAP):
         fail(f"mapping: p2p_reduce launched {launches} times over {n_scans} scans, "
              f"expected max_iters x scans = {lio_cfg.max_iters * n_scans}")
     loops_in_run = len(mapper.loops)
-    with tempfile.TemporaryDirectory() as tmp:
-        mapper.save(tmp)                           # runs one more PGO
-        loaded = load_map(tmp)
+    mapper.save(map_dir)                           # runs one more PGO
+    loaded = load_map(map_dir)
     pgo.restore()
     icp.restore()
     pgo_ms, icp_ms = pgo.ms(), icp.ms()
@@ -368,7 +444,7 @@ def run_mapping(dev, card, lio_cfg, n_scans=N_MAPPING, points=CAP):
     rmse = float(np.sqrt(np.mean(np.sum((traj[:, :3, 3] - gt[:, :3, 3]) ** 2, axis=1))))
     if not rmse < MAPPING_RMSE_LIMIT_M:
         fail(f"mapping: trajectory RMSE {rmse} m is not below {MAPPING_RMSE_LIMIT_M} m")
-    all_costs = check_pgo_costs("mapping", pgo.results, flat=(len(pgo.results) - 1,))
+    all_costs = check_pgo_costs("mapping", pgo, flat=(len(pgo.results) - 1,))
     if len(loaded["poses"]) != n_kf or len(loaded["edges"]) < n_kf - 1:
         fail(f"mapping: the saved map loads {len(loaded['poses'])} poses and "
              f"{len(loaded['edges'])} edges for {n_kf} keyframes")
@@ -397,21 +473,90 @@ def run_mapping(dev, card, lio_cfg, n_scans=N_MAPPING, points=CAP):
         f"{report['host_syncs_per_other_scan']} (other), p2p_reduce launches {launches}")
 
     report["async"] = run_mapping_async(mapper_mod, mcfg, nav0, data, gt)
-    return report
+    return report, sim, data
 
 
-def check_pgo_costs(where, results, flat=()):
-    """Every solve's costs are finite and its last round's is not above its
-    first's; returns them as an array (one fetch).  The solves numbered in
-    ``flat`` start from an optimized graph, where the cost is flat, so only
-    their comparison allows float32 rounding of the sum."""
+def pgo_cost64(graph, cfg):
+    """The cost that ``optimize`` reports for ``graph`` at the poses it
+    holds (robust weights taken at those poses), evaluated in float64."""
     import torch
-    all_costs = torch.stack([info["costs"] for _, info in results]).cpu().numpy()
+    from lsd_tpu_torch.slam import posegraph as pg
+    if bool(graph.gps.mask.any() | graph.floor.mask.any() | graph.orient.mask.any()):
+        fail("pgo_cost64 sums SE3 edges only, and this graph holds a prior")
+    f64 = lambda t: t.to(torch.float64)
+    nodes = graph.nodes._replace(quat=f64(graph.nodes.quat), pos=f64(graph.nodes.pos))
+    se3 = graph.se3._replace(q_meas=f64(graph.se3.q_meas), t_meas=f64(graph.se3.t_meas),
+                             sqrt_info=f64(graph.se3.sqrt_info))
+    r = pg._se3_residual(nodes, se3, torch.zeros_like(nodes.pos).repeat(1, 2))
+    w = pg._huber_weights(r, cfg.huber_delta)
+    if cfg.dcs_phi > 0:
+        is_loop = torch.abs(se3.idx[:, 0] - se3.idx[:, 1]) > 1
+        s2 = torch.clamp(2.0 * cfg.dcs_phi / (cfg.dcs_phi + torch.sum(r ** 2, dim=-1)), max=1.0)
+        w = w * torch.where(is_loop, torch.sqrt(s2), 1.0)
+    return float(torch.sum((r * w[:, None]) ** 2))
+
+
+def pgo_rounding_floor(graph):
+    """The cost that ``graph`` would show if every SE3 edge's residual were
+    off by one float32 spacing at the size of its poses' coordinates: the sum
+    over the edges of ``|sqrt_info|^2 * (eps * max(1, max |pos|))^2``.  A cost
+    under it cannot be told from rounding."""
+    import torch
+    scale = max(1.0, float(graph.nodes.pos[graph.nodes.mask].abs().max()))
+    info = torch.sum(graph.se3.sqrt_info[graph.se3.mask].double() ** 2)
+    return float(info) * (torch.finfo(torch.float32).eps * scale) ** 2
+
+
+def check_pgo_costs(where, solves, flat=()):
+    """Every solve's costs are finite and its last round's is not above its
+    first's; returns them as an array (one fetch).  ``solves`` is the
+    ``CallTimer`` that wrapped ``optimize``.
+
+    The solves numbered in ``flat`` start from an optimized graph.  There
+    the float32 costs that ``optimize`` reports only wander: a residual is
+    millimetres, the difference of poses metres from the origin whose
+    float32 spacing is a micrometre, so each cost carries ~1e-3 relative
+    rounding, and Gauss-Newton has no step acceptance to hide it.  Those
+    solves are judged by the cost of the graph they were given and of the
+    graph they returned, both evaluated in float64, which may rise by
+    PGO_FLAT_COST_RTOL at most.  Beside it goes the most that rounding every
+    pose to the nearest float32 could change that cost, ``sqrt(cost * floor)
+    + floor / 4`` with ``floor`` from ``pgo_rounding_floor`` (half a spacing
+    on every edge, all with the worst sign).
+
+    A solve whose first cost is already under ``pgo_rounding_floor`` (the
+    first of a drive: a chain of odometry edges and no loop yet, which is at
+    its optimum of zero as it stands) reports rounding and nothing else.  It
+    is held to staying under that floor in every round."""
+    import torch
+    all_costs = torch.stack([info["costs"] for _, info in solves.results]).cpu().numpy()
     for k, costs in enumerate(all_costs):
-        rtol = PGO_COST_RTOL if k in flat else 0.0
-        if not (np.isfinite(costs).all() and costs[-1] <= costs[0] * (1.0 + rtol)):
-            fail(f"{where}: PGO solve {k}'s costs {costs.tolist()} are not finite and "
-                 "non-increasing from first to last")
+        if not np.isfinite(costs).all():
+            fail(f"{where}: PGO solve {k}'s costs {costs.tolist()} are not finite")
+        floor = pgo_rounding_floor(solves.args[k][0])
+        if costs[0] <= floor:
+            log(f"{where}: PGO solve {k} starts at its optimum: costs {costs.tolist()} "
+                f"against a rounding floor of {floor:.3g}")
+            if costs.max() > floor:
+                fail(f"{where}: PGO solve {k} began under the rounding floor {floor:.3g} "
+                     f"and left it: costs {costs.tolist()}")
+            continue
+        if k in flat:
+            graph_in, cfg = solves.args[k]
+            before, after = pgo_cost64(graph_in, cfg), pgo_cost64(solves.results[k][0], cfg)
+            log(f"{where}: PGO solve {k} starts from an optimized graph: cost in float64 "
+                f"{before:.8g} -> {after:.8g} (relative change {(after - before) / before:+.2e}); "
+                f"as reported in float32 {costs[0]:.8g} -> {costs[-1]:.8g} "
+                f"({(costs[-1] - costs[0]) / costs[0]:+.2e}, largest round-to-round swing "
+                f"{np.max(np.abs(np.diff(costs))) / costs[0]:.2e}); rounding the poses to "
+                f"float32 can move the float64 cost by at most "
+                f"{(np.sqrt(before * floor) + floor / 4) / before:.2e} of it")
+            ok = np.isfinite(after) and after <= before * (1.0 + PGO_FLAT_COST_RTOL)
+        else:
+            ok = costs[-1] <= costs[0]
+        if not ok:
+            fail(f"{where}: PGO solve {k}'s costs {costs.tolist()} do not fall from first to "
+                 "last")
     return all_costs
 
 
@@ -427,7 +572,7 @@ def run_mapping_async(mapper_mod, mcfg, nav0, data, gt):
     t0 = time.perf_counter()
     amapper = mapper_mod.Mapper(dataclasses.replace(mcfg, async_graph=True, async_fetch=True),
                                 nav0)
-    timers = {name: EventTimer(mapper_mod, name)
+    timers = {name: CallTimer(mapper_mod, name)
               for name in ("optimize", "icp_point_to_plane", "sc_query")}
     for k, d in enumerate(data):
         amapper.process_scan(*d[:5], stamp_us=int(k * 1e5))
@@ -456,7 +601,7 @@ def run_mapping_async(mapper_mod, mcfg, nav0, data, gt):
     icp_poses = torch.stack([torch.cat(out[:2]) for out in timers["icp_point_to_plane"].results])
     if not bool(torch.isfinite(icp_poses).all()):
         fail("mapping (async): an ICP on the worker thread gave a non-finite pose")
-    check_pgo_costs("mapping (async)", timers["optimize"].results)
+    check_pgo_costs("mapping (async)", timers["optimize"])
     atraj = amapper.trajectory()
     if atraj.shape != (n, 4, 4) or not np.isfinite(atraj).all():
         fail(f"mapping (async): trajectory of shape {atraj.shape} is not {n} finite poses")
@@ -513,6 +658,363 @@ def run_points(dev, card, cfg, nav0, scans, gt, n_scans=N_POINTS):
     log(f"lio_step with map_type='points', {n_scans} scans on {card}: "
         f"{report['ms_per_scan']:.2f} ms/scan, ATE {ate:.5f} m, num_valid "
         f"{report['num_valid']}, {report['map_voxels']} voxels, p2p_reduce launches {launches}")
+    return report
+
+
+def check_tracking(where, outs, errs, n_scans):
+    """The reference test's bars on a localization drive; returns the RMSE."""
+    if outs[0]["status"] != "initialized":
+        fail(f"{where}: the first scan returned {outs[0]['status']!r}, not 'initialized'")
+    bad = [(k, o["status"]) for k, o in enumerate(outs[1:], 1) if o["status"] != "tracking"]
+    if bad or len(outs) != n_scans:
+        fail(f"{where}: scans that are not 'tracking': {bad} of {len(outs)}")
+    if not all(np.isfinite(o["pose"]).all() and o["pose"].shape == (4, 4) for o in outs):
+        fail(f"{where}: a pose is not a finite 4x4")
+    rmse = float(np.sqrt(np.mean(np.square(errs[3:]))))
+    if not rmse < LOC_RMSE_LIMIT_M:
+        fail(f"{where}: position RMSE {rmse} m after the first 3 poses is not below "
+             f"{LOC_RMSE_LIMIT_M} m; errors {errs}")
+    if not np.all(np.abs(np.diff(errs[-4:])) < LOC_TAIL_STEP_M):
+        fail(f"{where}: the last four errors {errs[-4:]} differ by {LOC_TAIL_STEP_M} m or more")
+    return rmse
+
+
+def follow(loc, drive, scans, side_lio, t_start=LOC_T_START):
+    """Feed ``scans`` of ``drive`` to ``loc``, with their stamps and IMU batch
+    if ``side_lio``; returns (outputs, position errors in m (NaN where a
+    scan gave no pose), host ms per scan).  With the side LIO the scan is
+    undistorted to its end, so the pose is held against the truth there;
+    without it the raw sweep is matched and the pose is held against the
+    truth at the sweep's start, as the reference test holds it."""
+    import torch
+    from lsd_tpu_torch.tools.profile_lio import drive_localizer
+    outs, errs, ms = [], [], []
+    feed = drive_localizer(loc, drive, scans, t_start, side_lio=side_lio)
+    for k in range(len(scans)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = next(feed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        truth = scans[k][5][:3, 3] if side_lio else drive.pose(t_start + k * 0.1)[1]
+        outs.append(out)
+        errs.append(float(np.linalg.norm(out["pose"][:3, 3] - truth))
+                    if out["pose"] is not None else float("nan"))
+    return outs, errs, ms
+
+
+def run_localization(dev, card, map_dir, sim, map_data):
+    """Phase 6: the localization path on the map phase 4 saved from the
+    scans ``map_data`` of ``sim``."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam import localization as loc_mod
+    from lsd_tpu_torch.tools.profile_lio import drive_localizer, localization_drive, sync_sites
+
+    # ---- production mode: the side LIO's increments drive the filter -------
+    t0 = time.perf_counter()
+    # one scan more than the drive feeds: the kernel is held against its
+    # plain version on it, at the side LIO's state after the drive
+    drive, scans, hint = localization_drive(sim, N_LOC + 1, CAP)
+    log(f"localization: made {len(scans)} scans of {CAP} points in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = loc_mod.LocalizerConfig()
+    if not cfg.use_lio_odometry:
+        fail("localization: LocalizerConfig() no longer runs the side LIO by default")
+    t0 = time.perf_counter()
+    loc = loc_mod.Localizer(map_dir, cfg)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    loc.set_init_pose(hint)
+    build = CallTimer(loc, "_build_local_map", host=True)
+    reloc = CallTimer(loc, "_relocalize", host=True)
+    track = CallTimer(loc_mod, "localize_track_step")
+    outs, scan_ms, used, syncs, sync_sites_seen = [], [], [], {True: [], False: []}, {}
+    p2p_reduce.launches = 0
+    feed = drive_localizer(loc, drive, scans, LOC_T_START)
+    for k in range(N_LOC):
+        builds = len(build.spans)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k in LOC_SYNC_SCANS:
+            (_, out), sites = sync_sites(lambda: next(feed))
+            syncs[len(build.spans) > builds].append(sum(sites.values()))
+            for site, n in sites.items():
+                sync_sites_seen[site] = sync_sites_seen.get(site, 0) + n
+        else:
+            _, out = next(feed)
+        torch.cuda.synchronize()
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        used.append(k > 0 and loc.last_step_diag["has_odom"])
+    launches = p2p_reduce.launches
+    for timer in (track, build, reloc):
+        timer.restore()
+    track_ms, build_ms, reloc_ms = track.ms(), build.ms(), reloc.ms()
+    if launches != cfg.lio.max_iters * N_LOC:
+        fail(f"localization: p2p_reduce launched {launches} times over {N_LOC} scans, "
+             f"expected the side LIO's max_iters x scans = {cfg.lio.max_iters * N_LOC}")
+    errs = [float(np.linalg.norm(o["pose"][:3, 3] - s[5][:3, 3])) if o["pose"] is not None
+            else float("nan") for o, s in zip(outs, scans)]
+    rmse = check_tracking("localization", outs, errs, N_LOC)
+    # the kernel against its plain version at the shape this path gives it:
+    # the side LIO's own state after the drive, the next scan's first
+    # iteration (after the count was read: these launches are not the path's)
+    side_args = p2p_inputs(cfg.lio, loc._lio_state,
+                           tuple(torch.as_tensor(a, device=dev) for a in scans[N_LOC][:5]))
+    if side_args[0].shape[0] != cfg.lio.ds_capacity:
+        fail(f"localization: the side LIO reduces {side_args[0].shape[0]} points, expected "
+             f"ds_capacity = {cfg.lio.ds_capacity}")
+    side_err = compare_p2p(side_args, cfg.lio.max_resid)
+    # late in a long process the profiler may drop records in every trace:
+    # the comparison above is the check, the device time is a reading
+    side_ms, _ = device_ms(lambda: p2p_reduce(*side_args, cfg.lio.max_resid), match="p2p_",
+                           required=False)
+    side_call_ms = time_ms(lambda: p2p_reduce(*side_args, cfg.lio.max_resid))
+    log(f"p2p_reduce at the side LIO's shape, N={cfg.lio.ds_capacity}: max abs error "
+        f"{side_err:.3e}, device time per call {side_ms} ms, call time {side_call_ms:.4f} ms")
+    if any(used[:10]) or not all(used[10:]):
+        fail(f"localization: the side LIO's increments were used on scans "
+             f"{[k for k, u in enumerate(used) if u]}, expected every scan after its 10 "
+             "warm-up scans")
+    if len(build_ms) < 2:
+        fail(f"localization: the local map was built {len(build_ms)} times, expected the "
+             "first build and at least one recentre")
+    if len(track_ms) != N_LOC - 1 or len(reloc_ms) != 1:
+        fail(f"localization: {len(track_ms)} track steps and {len(reloc_ms)} relocalizations "
+             f"over {N_LOC} scans")
+    steady = scan_ms[10:]
+    report = dict(
+        card=card, scans=N_LOC, points_per_scan=CAP, keyframes=len(loc.store),
+        load_map_and_descriptors_ms=load_ms,
+        ms_per_process_scan_median=float(np.median(steady)),
+        ms_per_process_scan_min=float(np.min(steady)),
+        ms_per_process_scan_max=float(np.max(steady)),
+        ms_per_track_step_median=float(np.median(track_ms[9:])),
+        ms_per_track_step_min=float(np.min(track_ms[9:])),
+        ms_per_track_step_max=float(np.max(track_ms[9:])),
+        ms_per_build_local_map=[round(x, 2) for x in build_ms],
+        ms_per_relocalization=reloc_ms[0],
+        host_syncs_per_process_scan=float(np.mean(syncs[False])) if syncs[False] else None,
+        host_syncs_per_recentring_scan=float(np.mean(syncs[True])) if syncs[True] else None,
+        host_sync_sites=sync_sites_seen, rmse_m=rmse, max_err_m=float(np.max(errs[3:])),
+        recentres=len(build_ms) - 1, p2p_launches=launches,
+        p2p_at_side_lio_shape=dict(n=cfg.lio.ds_capacity, max_abs_err=side_err, ms=side_ms,
+                                   call_ms=side_call_ms))
+    log(f"localization (side LIO on), {N_LOC} scans of {CAP} points on {card}: "
+        f"{report['ms_per_process_scan_median']:.2f} ms per process_scan (median of the "
+        f"{len(steady)} after warm-up; {report['ms_per_process_scan_min']:.2f}-"
+        f"{report['ms_per_process_scan_max']:.2f}), track step "
+        f"{report['ms_per_track_step_median']:.2f} ms, local map builds "
+        f"{report['ms_per_build_local_map']} ms, relocalization from the hint "
+        f"{reloc_ms[0]:.1f} ms, host syncs per process_scan "
+        f"{report['host_syncs_per_process_scan']} ({report['host_syncs_per_recentring_scan']} "
+        f"when it recentres), RMSE {rmse:.4f} m, {report['recentres']} recentres, "
+        f"p2p_reduce launches {launches}")
+
+    # ---- IMU-driven prediction, no stamps and no IMU batch ------------------
+    loc2 = loc_mod.Localizer(map_dir, cfg)
+    loc2.set_init_pose(hint)
+    track = CallTimer(loc_mod, "localize_track_step")
+    p2p_reduce.launches = 0
+    outs2, errs2, ms2 = follow(loc2, drive, scans[:N_LOC_IMU], side_lio=False)
+    track.restore()
+    if p2p_reduce.launches != 0:
+        fail(f"localization (IMU prediction): p2p_reduce launched {p2p_reduce.launches} times "
+             "with no side LIO running")
+    rmse2 = check_tracking("localization (IMU prediction)", outs2, errs2, N_LOC_IMU)
+    report["imu_prediction"] = dict(
+        scans=N_LOC_IMU, rmse_m=rmse2, speed_at_the_end_m_s=float(np.linalg.norm(
+            drive.velocity(LOC_T_START + (N_LOC_IMU - 1) * 0.1))),
+        ms_per_process_scan_median=float(np.median(ms2[1:])),
+        ms_per_track_step_median=float(np.median(track.ms())))
+    log(f"localization (IMU-driven prediction, 15 NDT searches), {N_LOC_IMU} scans: "
+        f"{report['imu_prediction']['ms_per_process_scan_median']:.2f} ms per process_scan, "
+        f"track step {report['imu_prediction']['ms_per_track_step_median']:.2f} ms, "
+        f"RMSE {rmse2:.4f} m")
+
+    # ---- both modes begun at cruise: reported, not judged -------------------
+    # The reference test's own drive (at the mapping run's speed, 3.037 s
+    # into the lap).  A filter that starts cold at 6.4 m/s is a known weak
+    # spot of the reference that the port reproduces: the side LIO has not
+    # converged when its increments come into use, and at this point count
+    # the IMU-driven filter settles metres off, all the while "tracking"
+    # (tests/test_torch_localization_cruise.py holds both packages to it).
+    cruise, cscans, chint = localization_drive(sim, N_LOC_CRUISE, CAP, t_start=CRUISE_T_START,
+                                               rest_time=0.0, ramp_time=0.0)
+    report["cruise_start"] = {}
+    for mode, side_lio, n in (("imu_prediction", False, N_LOC_CRUISE_IMU),
+                              ("side_lio", True, N_LOC_CRUISE)):
+        loc3 = loc_mod.Localizer(map_dir, cfg)
+        loc3.set_init_pose(chint)
+        outs3, errs3, _ = follow(loc3, cruise, cscans[:n], side_lio, t_start=CRUISE_T_START)
+        statuses = [o["status"] for o in outs3]
+        report["cruise_start"][mode] = dict(
+            scans=n, statuses={st: statuses.count(st) for st in sorted(set(statuses))},
+            err_m=[None if np.isnan(e) else round(e, 3) for e in errs3])
+        log(f"localization begun at cruise, {mode}, {n} scans (not judged): "
+            f"{report['cruise_start'][mode]}")
+
+    # ---- global relocalization without a hint, through the entry point ------
+    # Not judged (the ring world is ambiguous to ScanContext), but it must
+    # not raise: the drive's last scan; the raw sweep a keyframe was made
+    # from; and that keyframe's stored cloud, whose descriptor is in the
+    # database, so that the candidate passes and the ICP check runs.
+    kf = loc.store.frames[len(loc.store) // 2]
+    sweep = map_data[int(round(kf.stamp_us / 1e5))]
+    kf_pts = np.zeros((1 << int(np.ceil(np.log2(len(kf.cloud)))), 3), np.float32)
+    kf_pts[:len(kf.cloud)] = kf.cloud[:, :3]
+    report["global_relocalization"] = {}
+    for name, P, M, truth in (
+            ("last_scan_of_the_drive", scans[N_LOC - 1][0], scans[N_LOC - 1][2],
+             scans[N_LOC - 1][5]),
+            ("sweep_of_a_keyframe", sweep[0], sweep[2], sweep[5]),
+            ("stored_cloud_of_that_keyframe", kf_pts, np.arange(len(kf_pts)) < len(kf.cloud),
+             kf.pose)):
+        fresh = loc_mod.Localizer(map_dir, cfg)
+        reloc = CallTimer(fresh, "_relocalize", host=True)
+        out = fresh.process_scan(P, M, stamp_us=0)
+        report["global_relocalization"][name] = dict(
+            points=int(M.sum()), status=out["status"], ms=reloc.ms()[0], **fresh.last_reloc,
+            err_m=None if out["pose"] is None
+            else float(np.linalg.norm(out["pose"][:3, 3] - truth[:3, 3])))
+        log(f"global relocalization without a hint, {name} (not judged): "
+            f"{report['global_relocalization'][name]}")
+
+    # ---- the tracking step alone --------------------------------------------
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    P, S, M = (torch.as_tensor(a, device=dev) for a in scans[N_LOC - 1][:3])
+    z3 = f32([0.0, 0.0, 0.0])
+    args = (loc.ukf, loc.ndt_map, loc.icp_map, P, M, f32(0.1), z3, z3, z3,
+            torch.zeros((), dtype=torch.bool, device=dev), f32(4.0))
+    kw = dict(odom_dq=f32([1.0, 0.0, 0.0, 0.0]), odom_dt=z3, gate_t=f32(1.0),
+              gate_ang=f32(0.17), gps_gate=f32(2.5), stamps=S, ukf_cfg=cfg.ukf, has_odom=True,
+              ndt_searches=cfg.ndt_searches_odom, track_voxel=cfg.track_voxel,
+              track_capacity=cfg.track_capacity)
+    step = lambda: loc_mod.localize_track_step(*args, **kw)
+    _, sites = sync_sites(step)
+    if sites:
+        fail(f"localize_track_step made host syncs: {sites}")
+
+    def timed(fetch_each):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(N_TRACK_CALLS):
+            pose = step()[1]
+            if fetch_each:
+                pose.cpu()
+        pose.cpu()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / N_TRACK_CALLS
+    step()
+    report["track_step_alone"] = dict(calls=N_TRACK_CALLS, host_syncs=0,
+                                      ms_fetch_every_call=timed(True),
+                                      ms_one_fetch_at_the_end=timed(False))
+    log(f"localize_track_step alone, {N_TRACK_CALLS} calls: "
+        f"{report['track_step_alone']['ms_fetch_every_call']:.2f} ms per call with a fetch "
+        f"each, {report['track_step_alone']['ms_one_fetch_at_the_end']:.2f} ms with one fetch "
+        "at the end, 0 host syncs inside it")
+    return report
+
+
+def run_rtkm(dev, card, sim, data, mcfg_kw):
+    """Phase 7a: RTK-interpolated mapping over phase 4's scans."""
+    import torch
+    from lsd_tpu_torch.geometry.utm import UTMProjector, grid_convergence
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam.mapper import MapperConfig
+    from lsd_tpu_torch.slam.rtkm import RtkMapper
+
+    # fixes at the simulator's poses every 0.1 s, through the projection and
+    # back: lat/lon of the pose's offset from the first, heading in NED
+    # degrees against true north (the mapper takes the grid convergence off)
+    proj = UTMProjector()
+    proj.project(42.0, -83.0)
+    _, p0 = sim.pose(0.0)
+    m = RtkMapper(MapperConfig(**mcfg_kw))
+    n = len(data)
+    for k in range(n + 2):
+        R, p = sim.pose(k * 0.1)
+        lat, lon = proj.unproject(p[0] - p0[0], p[1] - p0[1])
+        yaw = np.degrees(np.arctan2(R[1, 0], R[0, 0]))
+        m.feed_ins(dict(timestamp=int(k * 1e5), latitude=float(lat), longitude=float(lon),
+                        altitude=100.0 + p[2] - p0[2], pitch=0.0, roll=0.0,
+                        heading=90.0 - yaw + grid_convergence(proj.lon0, float(lat), float(lon))))
+    p2p_reduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for k, d in enumerate(data):
+        out = m.process_scan(d[0], d[1], d[2], stamp_us=int(k * 1e5))
+        if out["pose"] is None:
+            fail(f"rtkm: scan {k} got no pose ({out['status']})")
+        # the scan-end pose: the fix at (k + 1) * 0.1 s, in the frame that
+        # starts at the first fix
+        R, p = sim.pose((k + 1) * 0.1)
+        worst = max(worst, float(np.abs(out["odom"][:3, 3] - (p - p0)).max()),
+                    float(np.abs(out["odom"][:3, :3] - R).max()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not worst < RTK_POSE_ATOL_M:
+        fail(f"rtkm: a scan's pose is {worst} off its interpolated fix, allowed "
+             f"{RTK_POSE_ATOL_M}")
+    n_kf = len(m.store)
+    if n_kf < RTK_MIN_KEYFRAMES or m.graph.num_nodes != n_kf or m.sc_ids != list(range(n_kf)):
+        fail(f"rtkm: {n_kf} keyframes, {m.graph.num_nodes} graph nodes, {len(m.sc_ids)} "
+             f"descriptors; expected at least {RTK_MIN_KEYFRAMES} of each, all equal")
+    if p2p_reduce.launches != 0:
+        fail(f"rtkm: p2p_reduce launched {p2p_reduce.launches} times; RTK mapping runs no LIO")
+    traj = m.trajectory()
+    if traj.shape != (n, 4, 4) or not np.isfinite(traj).all():
+        fail(f"rtkm: trajectory of shape {traj.shape} is not {n} finite poses")
+    report = dict(card=card, scans=n, points_per_scan=data[0][0].shape[0],
+                  ms_per_scan=dt / n * 1e3, keyframes=n_kf, loops=len(m.loops),
+                  loop_stats=m.loop_stats, max_pose_minus_fix=worst,
+                  origin_lla=[float(v) for v in m.origin_lla])
+    log(f"rtkm, {n} scans on {card}: {report['ms_per_scan']:.2f} ms/scan, {n_kf} keyframes, "
+        f"{len(m.loops)} loops, loop_stats {m.loop_stats}, poses within {worst:.2e} of their "
+        "fixes")
+    return report
+
+
+def run_icp_odometry(dev, card):
+    """Phase 7b: LiDAR-only odometry on the reference test's world."""
+    import torch
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam.icp_odometry import IcpOdometry, IcpOdometryConfig
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+
+    sim = CircleSim(SimConfig(radius=10.0, omega=0.15, n_scans=N_ICP_ODOM, points_per_scan=CAP,
+                              seed=66))
+    data = sim.generate(capacity=CAP, imu_capacity=IMU_CAP)
+    odo = IcpOdometry(IcpOdometryConfig())
+    T0_inv = np.linalg.inv(data[0][5])
+    errs, valid, syncs = [], [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, d in enumerate(data):
+        if k == N_ICP_ODOM - 1:
+            out, sites = sync_sites(lambda: odo.process_scan(d[0], d[2]))
+            syncs = sum(sites.values())
+        else:
+            out = odo.process_scan(d[0], d[2])
+        errs.append(float(np.linalg.norm(out["pose"][:3, 3] - (T0_inv @ d[5])[:3, 3])))
+        valid.append(out["num_valid"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ate = float(np.sqrt(np.mean(np.square(errs[2:]))))
+    if not (np.isfinite(errs).all() and ate < ICP_ODOM_ATE_LIMIT_M):
+        fail(f"icp_odometry: relative-motion ATE {ate} m after the first two scans is not "
+             f"below {ICP_ODOM_ATE_LIMIT_M} m; errors {errs}")
+    if syncs != 1:
+        fail(f"icp_odometry: a scan made {syncs} host syncs, expected its one packed fetch: "
+             f"{sites}")
+    report = dict(card=card, scans=N_ICP_ODOM, points_per_scan=CAP,
+                  ms_per_scan=dt / N_ICP_ODOM * 1e3, ate_m=ate, num_valid_last=valid[-1], host_syncs_per_scan=syncs)
+    log(f"icp_odometry, {N_ICP_ODOM} scans of {CAP} points on {card}: "
+        f"{report['ms_per_scan']:.2f} ms/scan, relative-motion ATE {ate:.4f} m, num_valid "
+        f"{valid[-1]}, {syncs} host sync per scan")
     return report
 
 
@@ -600,14 +1102,32 @@ def main() -> None:
     del st
 
     # ---- 4. the mapping path, 5. the raw-point LIO path --------------------
-    mapping_report = run_mapping(dev, card, cfg)
-    p2p_report["launches_mapping"] = mapping_report["p2p_launches"]
-    points_report = run_points(dev, card, cfg, nav0, scans, gt)
-    p2p_report["launches_points"] = points_report["p2p_launches"]
+    with tempfile.TemporaryDirectory() as map_dir:
+        mapping_report, map_sim, map_data = run_mapping(dev, card, cfg, map_dir)
+        p2p_report["launches_mapping"] = mapping_report["p2p_launches"]
+        points_report = run_points(dev, card, cfg, nav0, scans, gt)
+        p2p_report["launches_points"] = points_report["p2p_launches"]
+        del scans
+
+        # ---- 6. the localization path on that map --------------------------
+        loc_report = run_localization(dev, card, map_dir, map_sim, map_data)
+        p2p_report["launches_localization"] = loc_report["p2p_launches"]
+        side = loc_report["p2p_at_side_lio_shape"]
+        p2p_report["max_abs_err"] = max(p2p_report["max_abs_err"], side["max_abs_err"])
+        p2p_report["ms_at_side_lio_shape"] = side["ms"]
+        p2p_report["call_ms_at_side_lio_shape"] = side["call_ms"]
+
+    # ---- 7. RTK mapping and LiDAR-only odometry ---------------------------
+    rtkm_report = run_rtkm(dev, card, map_sim, map_data,
+                           dict(lio=cfg, keyframe_delta_trans=1.5, optimize_every=8))
+    icp_odom_report = run_icp_odometry(dev, card)
 
     print(json.dumps({"lio_step": lio_report}))
     print(json.dumps({"mapping": mapping_report}))
     print(json.dumps({"lio_step_points": points_report}))
+    print(json.dumps({"localization": loc_report}))
+    print(json.dumps({"rtkm": rtkm_report}))
+    print(json.dumps({"icp_odometry": icp_odom_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

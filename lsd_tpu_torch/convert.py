@@ -2,8 +2,9 @@
 
 SLAM has no weights: what the two packages must share to continue one run
 is state: the LIO filter state (navigation state, covariance, local map of
-either type, map centre and flags), the ScanContext database and a padded
-pose graph.  Both directions go through numpy.
+either type, map centre and flags), the ScanContext database, a padded
+pose graph, the localizer's UKF state and its NDT map.  Both directions go
+through numpy.
 
 - ``*_from_numpy(tree, device)`` takes the JAX object after
   ``jax.device_get`` (numpy leaves, fields read by name, so this module
@@ -13,8 +14,9 @@ pose graph.  Both directions go through numpy.
   reference's field names and layout, so the reference's NamedTuples
   rebuild from them by keyword: ``LioState(nav=NavState(**d["nav"]),
   map=SurfelMap(**d["map"]), ...)``, ``ScanContextDB(**d)``,
-  ``PoseGraphData(nodes=GraphNodes(**d["nodes"]), ...)``.  The surfel
-  coords and moments are tuples of 3 and 10 (C,) arrays there.
+  ``PoseGraphData(nodes=GraphNodes(**d["nodes"]), ...)``, ``UkfState(**d)``,
+  ``NdtMap(**d)``.  The surfel coords and moments are tuples of 3 and 10
+  (C,) arrays there.
 """
 from __future__ import annotations
 
@@ -27,8 +29,10 @@ from .ops.hashmap import VoxelHashMap
 from .ops.surfel import SurfelMap
 from .slam import posegraph as pg
 from .slam.lio import LioState
+from .slam.registration import NdtMap
 from .slam.scancontext import ScanContextDB
 from .slam.state import NavState
+from .slam.ukf import UkfState
 from .utils.device import DeviceLike, resolve_device
 
 
@@ -134,3 +138,25 @@ def graph_from_numpy(tree, device: DeviceLike = None) -> pg.PoseGraphData:
 def graph_to_numpy(graph: pg.PoseGraphData) -> dict:
     return {part: {f: _a(v) for f, v in zip(cls._fields, getattr(graph, part))}
             for part, cls in _GRAPH_PARTS.items()}
+
+
+def ukf_state_from_numpy(tree, device: DeviceLike = None) -> UkfState:
+    t = _uploader(device)
+    return UkfState(x=t(_field(tree, "x")), P=t(_field(tree, "P")))
+
+
+def ukf_state_to_numpy(st: UkfState) -> dict:
+    return dict(x=_a(st.x), P=_a(st.P))
+
+
+_NDT_DTYPES = dict(keys=torch.int32, mean=torch.float32, cov_inv=torch.float32,
+                   counts=torch.int32, voxel_size=torch.float32)
+
+
+def ndt_map_from_numpy(tree, device: DeviceLike = None) -> NdtMap:
+    t = _uploader(device)
+    return NdtMap(**{f: t(_field(tree, f), d) for f, d in _NDT_DTYPES.items()})
+
+
+def ndt_map_to_numpy(m: NdtMap) -> dict:
+    return {f: _a(v) for f, v in zip(NdtMap._fields, m)}

@@ -66,6 +66,46 @@ def mapping_run(dev, n_scans=MAPPING_SCANS, points=2 ** 15, lio=BENCH_CFG, **map
     return sim, data, nav_at_start(sim, dev), cfg
 
 
+def localization_drive(sim, n_scans: int, points: int, t_start: float = 0.037,
+                       rest_time: float = 1.0, ramp_time: float = 3.0):
+    """The drive that ``chip_smoke.py`` and ``profile_localizer`` give the
+    localizer on ``mapping_run``'s map: (drive sim, scans as host arrays
+    with the truth at each scan's end, pose hint ~1 m off).  The same world
+    as ``sim``'s (same seed and radius); the vehicle stands at the start of
+    the mapped circle for ``rest_time`` s, speeds up over ``ramp_time`` s to
+    the mapping run's rate and cruises.  It starts at rest because the
+    localizer's side-running LIO cold-starts at the identity with no
+    velocity: begun at 6.4 m/s it does not converge within its 10 warm-up
+    scans, in either package, and its increments then carry the filter off
+    the map (``tests/test_torch_localization_cruise.py``).  With both times 0
+    the drive is the mapping run's own, at cruise from the first scan.
+    ``t_start`` keeps the scans off the stamps the mapping run saw."""
+    c = sim.cfg
+    drive = CircleSim(SimConfig(radius=c.radius, omega=c.omega, n_scans=n_scans,
+                                points_per_scan=points, point_noise=c.point_noise, seed=c.seed,
+                                rest_time=rest_time, ramp_time=ramp_time))
+    scans = drive.generate(capacity=points, imu_capacity=16, t_start=t_start)
+    R, p = drive.pose(t_start)
+    hint = np.eye(4)
+    hint[:3, :3], hint[:3, 3] = R, p + np.asarray([0.8, -0.5, 0.1])
+    return drive, scans, hint
+
+
+def drive_localizer(loc, drive, scans, t_start: float = 0.037, first: int = 0,
+                    side_lio: bool = True):
+    """Feed ``scans[first:]`` of ``localization_drive`` to ``loc`` as the
+    runtime does (the newest IMU sample for the filter's prediction and,
+    with ``side_lio``, stamps and IMU batch for the side LIO); yields
+    (k, output) per scan."""
+    for k in range(first, len(scans)):
+        P, S, M, I, IM, _ = scans[k]
+        t0 = t_start + k * 0.1
+        smp = drive.imu_sample(t0)
+        lio = dict(stamps=S, imu=I, imu_mask=IM) if side_lio else {}
+        yield k, loc.process_scan(P, M, stamp_us=int(t0 * 1e6), imu_gyro=smp[1:4],
+                                  imu_acc=smp[4:7] * 9.81, **lio)
+
+
 def _card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

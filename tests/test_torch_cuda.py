@@ -20,6 +20,14 @@ and scatter-add are order-free), ``optimize`` and ``icp_point_to_plane`` the
 same poses within atol 1e-4 (float atomics in the scatter-adds and another
 order of the reductions; 2e-3 for ICP against a raw-point target, whose
 plane fits are ill-conditioned in float32), and neither makes a host sync.
+
+The localization path: ``ndt_build`` gives the same keys and counts (integer
+scatter-min), means within 1e-4 and an inverse covariance whose Mahalanobis
+distances agree within 2e-2 for 99 % of the voxels (float atomics in the
+sums; the covariance cancels in float32); ``ndt_align`` on one map agrees
+within 1e-4 and ``localize_track_step`` within 1e-3, and neither makes a
+host sync; a short ``Localizer`` drive gives the same statuses and poses
+within 0.02 m.
 """
 import numpy as np
 import pytest
@@ -370,3 +378,164 @@ def test_mapper_on_card_matches_cpu(cuda):
     # map's scatter-adds); the odometry does not depend on the graph thread
     for ka, kb in zip(b.store.frames, m.store.frames):
         np.testing.assert_allclose(kb.odom, ka.odom, atol=1e-4)
+
+
+# ---- the localization path: the card against the CPU -----------------------
+
+
+def _ring_scan(n=8192, sweeps=1):
+    """``sweeps`` sweeps of the simulator's ring world from its first pose,
+    each another sample of the world, stacked: (points, stamps, mask)."""
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    sim = CircleSim(SimConfig(n_scans=2, points_per_scan=n, seed=11))
+    P = np.zeros((sweeps * n, 3), np.float32)
+    S = np.zeros(sweeps * n, np.float32)
+    M = np.zeros(sweeps * n, bool)
+    for i in range(sweeps):
+        pts, stamps = sim.scan(0.0)
+        k = min(len(pts), n)
+        P[i * n:i * n + k], S[i * n:i * n + k], M[i * n:i * n + k] = pts[:k, :3], stamps[:k], True
+    return P, S, M
+
+
+def _on(dev, *arrays):
+    return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+
+@pytest.mark.parametrize("voxel,cap", [(1.0, 2 ** 14), (1.5, 2 ** 11)])
+def test_ndt_build_on_card_matches_cpu(cuda, voxel, cap):
+    """The small table crowds the probe window; points that lose every
+    claim round end without a slot on both devices alike."""
+    from lsd_tpu_torch.slam.registration import ndt_build
+    P, _, M = _ring_scan()
+    a = ndt_build(*_on("cpu", P, M), voxel, cap)
+    b = ndt_build(*_on(cuda, P, M), voxel, cap)
+    assert torch.equal(a.keys, b.keys.cpu()) and torch.equal(a.counts, b.counts.cpu())
+    assert int((a.keys >= 0).sum()) > 250
+    torch.testing.assert_close(b.mean.cpu(), a.mean, rtol=0, atol=1e-4)
+    sel = a.counts >= 4
+    rng = np.random.default_rng(0)
+    d = torch.as_tensor(rng.normal(0, 0.3, (int(sel.sum()), 3)).astype(np.float32))
+    md = lambda m: torch.einsum("ni,nij,nj->n", d, m.cov_inv.cpu()[sel], d)
+    rel = ((md(b) - md(a)).abs() / md(a)).numpy()
+    assert np.quantile(rel, 0.99) < 2e-2 and rel.max() < 0.2, (np.quantile(rel, 0.99), rel.max())
+
+
+def _perturbed(P, scale=0.4):
+    from lsd_tpu_torch.geometry import np_so3
+    R = np_so3.exp_so3([0.0, 0.0, 0.04 * scale])
+    return ((P - np.asarray([0.4, -0.3, 0.05], np.float32) * scale) @ R).astype(np.float32)
+
+
+@pytest.mark.parametrize("kw", [dict(iters=15, searches=4), dict(iters=30)])
+def test_ndt_align_on_card_matches_cpu_and_makes_no_sync(cuda, kw):
+    from lsd_tpu_torch.slam.registration import NdtMap, ndt_align, ndt_build
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    P, _, M = _ring_scan()
+    m = ndt_build(*_on("cpu", P, M), 1.0, 2 ** 14)
+    src = _perturbed(P)
+    one = np.asarray([1.0, 0, 0, 0], np.float32)
+    qc, tc, ic = ndt_align(m, *_on("cpu", src, M, one, np.zeros(3, np.float32)), **kw)
+    args = (NdtMap(*[x.to(cuda) for x in m]), *_on(cuda, src, M, one, np.zeros(3, np.float32)))
+    ndt_align(*args, iters=1)                                     # warm up
+    (qg, tg, ig), sites = sync_sites(lambda: ndt_align(*args, **kw))
+    assert sites == {}, f"ndt_align made host syncs: {sites}"
+    torch.testing.assert_close(qg.cpu(), qc, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tg.cpu(), tc, rtol=0, atol=1e-4)
+    assert abs(float(ig["matched_frac"]) - float(ic["matched_frac"])) <= 2.0 / M.sum()
+    assert float(np.linalg.norm(tg.cpu().numpy() - [0.16, -0.12, 0.02])) < 0.05
+
+
+def _track_inputs(dev):
+    """A filter state, an NDT map and a surfel map of four sweeps, and a
+    fifth seen from 0.1 m further on, all on ``dev`` (the maps are built on
+    the CPU and moved, so that both devices match against the same ones)."""
+    from lsd_tpu_torch.ops.surfel import SurfelMap, surfel_create, surfel_insert
+    from lsd_tpu_torch.slam.registration import NdtMap, ndt_build
+    from lsd_tpu_torch.slam.ukf import UkfState, ukf_init
+    P, S, M = _ring_scan(sweeps=5)
+    ndt = ndt_build(*_on("cpu", P[8192:], M[8192:]), 1.0, 2 ** 14)
+    icp = surfel_insert(surfel_create(2 ** 16, 0.5, device="cpu"), *_on("cpu", P[8192:], M[8192:]))
+    P, S, M = P[:8192], S[:8192], M[:8192]
+    st = ukf_init(device="cpu")
+    x = st.x.clone()
+    x[3:6] = torch.tensor([1.0, 0.2, 0.0])
+    src = (P - np.asarray([0.1, 0.02, 0.0], np.float32))
+    mv = lambda t: type(t)(*[v.to(dev) for v in t])
+    return (mv(UkfState(x, st.P)), mv(ndt), mv(icp), *_on(dev, src, M)), S
+
+
+@pytest.mark.parametrize("mode", ["const", "imu", "odom"])
+def test_track_step_on_card_matches_cpu_and_makes_no_sync(cuda, mode):
+    from lsd_tpu_torch.slam.localization import localize_track_step
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    out = {}
+    for dev in ("cpu", cuda):
+        head, S = _track_inputs(dev)
+        f = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        args = (*head, f(0.1), f([0.0, 0.0, 0.02]), f([0.0, 0.0, 9.81]), f([0.1, 0.0, 0.0]),
+                f(True, torch.bool), f(0.25))
+        kw = dict(odom_dq=f([1.0, 0, 0, 0]), odom_dt=f([0.1, 0.02, 0.0]), gate_t=f(1.0),
+                  gate_ang=f(0.17), gps_gate=f(2.5), stamps=f(S) if mode == "odom" else None,
+                  has_imu=mode == "imu", has_odom=mode == "odom",
+                  ndt_searches=4 if mode == "odom" else 15, track_voxel=0.4, track_capacity=4096)
+        if dev == "cpu":
+            out["cpu"] = localize_track_step(*args, **kw)
+        else:
+            localize_track_step(*args, **kw)                      # warm up
+            out["cuda"], sites = sync_sites(lambda: localize_track_step(*args, **kw))
+            assert sites == {}, f"localize_track_step made host syncs: {sites}"
+    c, g = out["cpu"], out["cuda"]
+    torch.testing.assert_close(g[0].x.cpu(), c[0].x, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(g[0].P.cpu(), c[0].P, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(g[1].cpu(), c[1], rtol=0, atol=1e-3)
+    assert bool(g[4]) == bool(c[4]) is True and bool(g[5]) == bool(c[5]) is True
+    assert abs(float(g[2]) - float(c[2])) < 0.01 and abs(float(g[3]) - float(c[3])) < 0.01
+    assert float(np.linalg.norm(g[1][:3, 3].cpu().numpy() - [0.1, 0.02, 0.0])) < 0.05
+
+
+def test_localizer_on_card_matches_cpu(cuda, tmp_path):
+    """A map of 40 small scans (made on the CPU), then 14 scans of a drive
+    from rest through ``Localizer`` on each device, production mode: the
+    side LIO launches the p2p kernel three times a scan on the card."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam.lio import LioConfig
+    from lsd_tpu_torch.slam.localization import Localizer, LocalizerConfig
+    from lsd_tpu_torch.slam.mapper import Mapper, MapperConfig
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    world = dict(radius=8.0, omega=0.8, points_per_scan=4096, point_noise=0.01, seed=21)
+    lio = dict(ds_capacity=2048, map_capacity=2 ** 14, scan_voxel=0.4, map_voxel=0.4)
+    sim = CircleSim(SimConfig(n_scans=40, **world))
+    m = Mapper(MapperConfig(lio=LioConfig(**lio), keyframe_delta_trans=1.5,
+                            keyframe_cloud_cap=4096), nav_at_start(sim, "cpu"))
+    for k, d in enumerate(sim.generate(capacity=4096, imu_capacity=16)):
+        m.process_scan(*d[:5], stamp_us=int(k * 1e5))
+    m.save(str(tmp_path / "map"))
+    drive = CircleSim(SimConfig(n_scans=14, rest_time=0.4, ramp_time=2.0, **world))
+    scans = drive.generate(capacity=4096, imu_capacity=16, t_start=0.037)
+    R, p = drive.pose(0.037)
+    hint = np.eye(4)
+    hint[:3, :3], hint[:3, 3] = R, p + [0.8, -0.5, 0.1]
+    outs = {}
+    for dev in ("cpu", cuda):
+        loc = Localizer(str(tmp_path / "map"), LocalizerConfig(
+            lio=LioConfig(max_iters=3, **lio), ndt_capacity=2 ** 13, track_capacity=2048,
+            update_map_every=0.5), device=dev)
+        loc.set_init_pose(hint)
+        before = p2p_reduce.launches
+        res = []
+        for k, (P, S, M, I, IM, _) in enumerate(scans):
+            smp = drive.imu_sample(0.037 + k * 0.1)
+            res.append(loc.process_scan(P, M, int((0.037 + k * 0.1) * 1e6), imu_gyro=smp[1:4],
+                                        imu_acc=smp[4:7] * 9.81, stamps=S, imu=I, imu_mask=IM))
+        if dev != "cpu":
+            assert p2p_reduce.launches - before == 3 * len(scans)
+            assert loc.ukf.x.device.type == "cuda" and loc.ndt_map.keys.device.type == "cuda"
+        assert loc.last_step_diag["has_odom"]
+        outs[str(dev)] = res
+    assert [o["status"] for o in outs["cuda:0"]] == [o["status"] for o in outs["cpu"]] \
+        == ["initialized"] + ["tracking"] * 13
+    for k, (a, b) in enumerate(zip(outs["cuda:0"], outs["cpu"])):
+        np.testing.assert_allclose(a["pose"], b["pose"], rtol=0, atol=0.02, err_msg=str(k))
+        assert np.linalg.norm(a["pose"][:3, 3] - scans[k][5][:3, 3]) < 0.1

@@ -192,7 +192,11 @@ def test_config_fields_carry_over():
 def test_import_leaves_jax_out():
     mods = sorted(".".join(f.relative_to(REPO).with_suffix("").parts)
                   for f in (REPO / "lsd_tpu_torch").rglob("*.py") if f.name != "__init__.py")
-    assert "lsd_tpu_torch.slam.mapper" in mods and len(mods) > 25
+    assert {"lsd_tpu_torch.slam.mapper", "lsd_tpu_torch.slam.localization",
+            "lsd_tpu_torch.slam.ukf", "lsd_tpu_torch.slam.rtkm", "lsd_tpu_torch.slam.icp_odometry",
+            "lsd_tpu_torch.slam.visual_reloc", "lsd_tpu_torch.slam.bow",
+            "lsd_tpu_torch.geometry.utm", "lsd_tpu_torch.tools.profile_localizer"} <= set(mods)
+    assert len(mods) > 33
     code = ("import sys; import lsd_tpu_torch, " + ", ".join(mods) + "; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lsd_tpu.')) "
             "or m == 'lsd_tpu']; print(bad); sys.exit(1 if bad else 0)")
