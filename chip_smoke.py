@@ -73,6 +73,26 @@ Phases, in order; any failure exits non-zero:
    test's slow 10 m circle (relative-motion ATE after the first two scans
    < 0.35 m).
 
+8. Detection at full width, both shipped checkpoints (0.2 m pillars over
+   +-64 m, a 640^2 grid; 0.1 m pillars, a 1280^2 fine grid in space-to-depth):
+   read with the port's own msgpack reader.  The float32 twin of each on the
+   card (TF32 off) against the same on the host's CPU, on one realistic
+   scene of 2 accumulated frames (65,536 points): voxelization equal, head
+   maps within DET_MAP_RTOL of each map's largest magnitude, kept boxes
+   matched one to one.  The served path (``build_detector_predict_fn``,
+   bf16) on the 16 scenes of the reference's detection evaluation: mean AP
+   at the WOD IoUs within DET_AP_MARGIN of the JAX package's figure on the
+   same scenes (JAX_MEAN_AP).  Then the sequence of the reference's
+   ``DetectModule.process`` over 20 frames of one scene seen from a vehicle
+   at 10 m/s (``tools/profile_detector.py:ego_drive``/``detect_frame``):
+   predict makes no host sync; the tracker follows at least
+   DRIVE_MIN_OBJECTS of the scene's objects with one ID each over at least
+   DRIVE_MIN_FRAMES frames, at speeds under DRIVE_MAX_SPEED m/s; the p2p
+   kernel is not launched.  Reported: ms per frame (predict by CUDA events,
+   the whole frame on the host clock), launches, host syncs, the device's
+   idle share and the time by span, at both capacities; unjudged, the same
+   drive with the history aged by the INS's convention of the motion.
+
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true, "device":
@@ -109,6 +129,20 @@ LOC_RMSE_LIMIT_M, LOC_TAIL_STEP_M = 1.0, 0.1
 LOC_SYNC_SCANS = range(40, 46)      # localization scans whose host syncs are counted
 N_ICP_ODOM, ICP_ODOM_ATE_LIMIT_M = 25, 0.35
 RTK_MIN_KEYFRAMES, RTK_POSE_ATOL_M = 20, 1e-4
+N_DRIVE, N_DRIVE_WARM, N_DRIVE_PROFILED, N_DRIVE_SYNC = 20, 2, 3, 2
+# mean AP at the WOD IoUs of the JAX package's served detector (its
+# build_detector_predict_fn, bf16) on the 16 scenes of its detection
+# evaluation, on the CPU (jax 0.9.0): python -m tests.test_torch_detector_weights
+JAX_MEAN_AP = {"reference": 0.49415356343815914, "true_reference": 0.5096206159231369}
+DET_AP_MARGIN = 0.02
+# float32 twin, card against CPU, TF32 off: head maps within this share of
+# each map's largest magnitude; kept boxes within DET_BOX_ATOL (m, rad,
+# score); a box within DET_BOX_ATOL of its class threshold may go unmatched
+DET_MAP_RTOL, DET_BOX_ATOL = 1e-3, 1e-3
+# the drive's bars, set from a CPU rehearsal before the first card run: an
+# object is followed in a frame by the nearest track within DRIVE_GATE_M
+DRIVE_MIN_OBJECTS, DRIVE_MIN_FRAMES, DRIVE_GATE_M = 2, 15, 2.0
+DRIVE_MAX_SPEED, DRIVE_MIN_AGE = 1.5, 5
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -1018,6 +1052,260 @@ def run_icp_odometry(dev, card):
     return report
 
 
+def match_boxes(ref, got, thresh, tol):
+    """Greedy one-to-one match of two sets of kept detections (boxes,
+    scores, labels) by label and centre; returns (worst centre, heading
+    modulo pi and score deviation, unmatched count).  A box without a
+    partner within ``tol`` must lie within ``tol`` of its class threshold."""
+    worst, used, unmatched = np.zeros(3), np.zeros(len(got[0]), bool), 0
+    for b, sc, lb in zip(*ref):
+        d = np.linalg.norm(got[0][:, :2] - b[:2], axis=1) if len(got[0]) else np.zeros(0)
+        d[used | (got[2] != lb)] = np.inf
+        i = int(np.argmin(d)) if len(d) else -1
+        if i < 0 or d[i] > tol:
+            if abs(sc - thresh[lb]) > tol:
+                fail(f"detection: a kept box {b.tolist()} (score {sc}) has no partner")
+            unmatched += 1
+            continue
+        used[i] = True
+        dh = abs((got[0][i, 6] - b[6] + np.pi / 2) % np.pi - np.pi / 2)
+        worst = np.maximum(worst, [d[i], dh, abs(got[1][i] - sc)])
+    for sc, lb in zip(got[1][~used], got[2][~used]):
+        if abs(sc - thresh[lb]) > tol:
+            fail(f"detection: a kept box (score {sc}) has no partner")
+        unmatched += 1
+    return worst, unmatched
+
+
+def check_detector_fp32(dev, capacity, state_dict):
+    """The float32 twin of a shipped checkpoint on the card and on the
+    host's CPU, on one realistic scene of two accumulated frames."""
+    import torch
+    from lsd_tpu_torch.detection.accumulate import FrameAccumulator
+    from lsd_tpu_torch.detection.post import PostProcessConfig, postprocess
+    from lsd_tpu_torch.models.detector import CenterPointDetector
+    from lsd_tpu_torch.ops.voxelize import voxelize_dynamic
+    from lsd_tpu_torch.tools.profile_detector import CAPACITIES, ego_drive
+
+    cfg = CAPACITIES[capacity]()
+    frames, _ = ego_drive(2, seed=999)
+    acc = FrameAccumulator(2, frames[0][0].shape[0])
+    for f in frames:
+        pts, msk = acc.push(*f)
+    out = {}
+    for d in ("cpu", dev):
+        model = CenterPointDetector(cfg, dtype=torch.float32)
+        model.load_state_dict(state_dict)
+        model = model.to(d).eval()
+        P, M = torch.as_tensor(pts[:, :4], device=d), torch.as_tensor(msk, device=d)
+        with torch.inference_mode():
+            vox = voxelize_dynamic(P, M, cfg.voxel_size, cfg.pc_range, cfg.max_voxels,
+                                   cfg.max_points_per_voxel)
+            t0 = time.perf_counter()
+            maps = model(P, M)
+            kept = postprocess(PostProcessConfig(), *model.decode(maps))
+            if d != "cpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        k = kept[3].cpu()
+        out[str(d)] = dict(vox=[a.cpu() for a in vox], maps={n: v.cpu() for n, v in maps.items()},
+                           kept=[a.cpu().numpy()[k.numpy()] for a in kept[:3]], ms=ms)
+    cpu, card = out["cpu"], out[str(dev)]
+    for name, a, b in zip(("voxels", "coords", "counts", "mask"), cpu["vox"], card["vox"]):
+        if not torch.equal(a, b):
+            fail(f"detection ({capacity}): voxelize_dynamic's {name} differ between card and CPU")
+    map_err = {n: float((card["maps"][n] - v).abs().max() / v.abs().max())
+               for n, v in cpu["maps"].items()}
+    if max(map_err.values()) > DET_MAP_RTOL:
+        fail(f"detection ({capacity}): float32 head maps differ between card and CPU: {map_err}")
+    worst, unmatched = match_boxes(cpu["kept"], card["kept"], PostProcessConfig().score_thresh,
+                                   DET_BOX_ATOL)
+    n_vox = int(cpu["vox"][3].sum())
+    report = dict(points=int(msk.sum()), pillars=n_vox,
+                  full_pillars=int((cpu["vox"][2] == cfg.max_points_per_voxel).sum()),
+                  map_rel_err=map_err, kept_boxes=len(cpu["kept"][0]), unmatched=unmatched,
+                  worst_centre_m=float(worst[0]), worst_heading_rad=float(worst[1]),
+                  worst_score=float(worst[2]), fp32_ms_card=card["ms"], fp32_ms_cpu=cpu["ms"])
+    log(f"detection ({capacity}), float32 twin, card against CPU: {report}")
+    return report
+
+
+def follow_objects(history, objects, step):
+    """For each of the drive's objects, the track that follows it in each
+    frame (the nearest output track within DRIVE_GATE_M of where the object
+    lies in that frame): (objects followed over DRIVE_MIN_FRAMES frames or
+    more by a single ID, the largest speed of a track of age DRIVE_MIN_AGE
+    or more that follows an object, per-object summaries)."""
+    gt_boxes, gt_labels = objects
+    summaries, stable, top_speed = [], 0, 0.0
+    for b, lb in zip(gt_boxes, gt_labels):
+        ids = []
+        for k, objs in enumerate(history):
+            best = None
+            for o in objs:
+                dist = float(np.hypot(o["box"][0] - (b[0] - k * step), o["box"][1] - b[1]))
+                if dist < DRIVE_GATE_M and (best is None or dist < best[0]):
+                    best = (dist, o)
+            if best is not None:
+                ids.append(best[1]["id"])
+                if best[1]["age"] >= DRIVE_MIN_AGE:
+                    top_speed = max(top_speed, float(np.linalg.norm(best[1]["velocity"][:2])))
+        one_id = len(set(ids)) == 1
+        stable += one_id and len(ids) >= DRIVE_MIN_FRAMES
+        summaries.append(dict(label=int(lb), range_m=round(float(np.hypot(*b[:2])), 1),
+                              frames=len(ids), ids=sorted(set(ids))))
+    return stable, top_speed, summaries
+
+
+def drive_detector(dev, capacity, ins_history=False):
+    """``N_DRIVE`` frames of ``ego_drive`` through the reference's
+    ``DetectModule.process`` sequence at ``capacity``; returns the report.
+    With ``ins_history`` the accumulator ages its history by the motion as
+    the reference's INS reports it (the previous frame's pose of this one),
+    the tracker still by the drive's motion (unjudged)."""
+    import torch
+    from lsd_tpu_torch.detection.accumulate import FrameAccumulator
+    from lsd_tpu_torch.detection.tracker import Tracker3D, TrackerConfig
+    from lsd_tpu_torch.runtime.modules import build_detector_predict_fn
+    from lsd_tpu_torch.tools.profile_detector import (CAPACITIES, detect_frame, ego_drive,
+                                                      frame_profile, roi_filter)
+
+    class InsAccumulator(FrameAccumulator):
+        def push(self, points, mask, motion=None):
+            return super().push(points, mask, None if motion is None else np.linalg.inv(motion))
+
+    cfg = CAPACITIES[capacity]()
+    predict = build_detector_predict_fn(det_cfg=cfg, with_seg=True, device=dev)
+    n_all = N_DRIVE_WARM + N_DRIVE + N_DRIVE_PROFILED + N_DRIVE_SYNC
+    frames, objects = ego_drive(n_all)
+    cap = frames[0][0].shape[0]
+    # warm-up on throwaway state (cuDNN picks its algorithms on first use)
+    acc0, trk0 = FrameAccumulator(2, cap), Tracker3D(TrackerConfig(), device=dev)
+    for f in frames[:N_DRIVE_WARM]:
+        detect_frame(predict, cfg, acc0, trk0, roi_filter(), *f)
+    events = []
+
+    def timed_predict(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = predict(*args)
+        b.record()
+        events.append((a, b))
+        return out
+
+    acc = (InsAccumulator if ins_history else FrameAccumulator)(2, cap)
+    trk, filt = Tracker3D(TrackerConfig(), device=dev), roi_filter()
+    step = lambda f: detect_frame(timed_predict, cfg, acc, trk, filt, *f)
+    history, wall = [], []
+    drive = frames[:N_DRIVE]
+    for f in drive:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(f)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        history.append(out["objects"])
+    predict_ms = [a.elapsed_time(b) for a, b in events]
+    stable, top_speed, summaries = follow_objects(history, objects, 1.0)
+    tracked = [len(h) for h in history]
+    report = dict(capacity=capacity, frames=N_DRIVE, points_per_frame=2 * cap,
+                  ms_per_frame_median=float(np.median(wall[1:])),
+                  ms_per_frame_min=float(np.min(wall[1:])), ms_per_frame_max=float(np.max(wall)),
+                  predict_ms_median=float(np.median(predict_ms[1:])),
+                  predict_ms_min=float(np.min(predict_ms[1:])),
+                  objects_in_scene=len(objects[0]), objects_followed=stable,
+                  top_speed_m_s=top_speed, tracked_per_frame=tracked, per_object=summaries)
+    if ins_history:
+        return report
+    # the frames after the drive: launches, device busy share and spans
+    # under the profiler, then host syncs by site
+    prof = frame_profile(step, predict, frames[N_DRIVE:N_DRIVE + N_DRIVE_PROFILED],
+                         frames[N_DRIVE + N_DRIVE_PROFILED:])
+    report.update(
+        launches_per_frame=prof["kernel_launches_per_frame"],
+        device_busy_ms_per_frame=prof["device_busy_ms_per_frame"],
+        device_idle_share=prof["device_idle_share"],
+        wall_ms_per_frame_traced=prof["wall_ms_per_frame"],
+        spans={k: dict(host_ms=round(v["host_ms"], 3), launches=v["launches"])
+               for k, v in prof["spans"].items()},
+        top_kernels=prof["kernels"][:8],
+        host_syncs_per_frame=prof["host_syncs_per_frame"],
+        host_sync_sites=prof["host_sync_sites_per_frame"],
+        host_syncs_in_predict=prof["host_syncs_in_predict"])
+    if prof["host_syncs_in_predict"]:
+        fail(f"detection ({capacity}): predict made host syncs: "
+             f"{prof['host_sync_sites_in_predict']}")
+    return report
+
+
+def run_detection(dev, card):
+    """Phase 8: the detection path at full width, both shipped checkpoints."""
+    import torch
+    from lsd_tpu_torch.convert import detector_params_from_flax
+    from lsd_tpu_torch.models.params_io import count_params, load_params
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.runtime.modules import build_detector_predict_fn, shipped_detector_weights
+    from lsd_tpu_torch.tools.profile_detector import CAPACITIES, eval_scenes, mean_ap
+
+    p2p_reduce.launches = 0
+    report = dict(card=card, checkpoints={}, float32_card_vs_cpu={}, accuracy={}, drive={})
+    scenes = eval_scenes()
+    for capacity, make_cfg in sorted(CAPACITIES.items()):
+        path = shipped_detector_weights(make_cfg())
+        if path is None:
+            fail(f"detection: no shipped checkpoint for the {capacity} capacity")
+        t0 = time.perf_counter()
+        tree = load_params(path)
+        state_dict = detector_params_from_flax(tree)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        arrays, numbers = count_params(tree)
+        report["checkpoints"][capacity] = dict(file=os.path.basename(path), arrays=arrays,
+                                               parameters=numbers, load_ms=load_ms)
+        log(f"detection: read {os.path.basename(path)} with the port's reader: {arrays} arrays, "
+            f"{numbers} parameters, {load_ms:.1f} ms")
+        report["float32_card_vs_cpu"][capacity] = check_detector_fp32(dev, capacity, state_dict)
+
+        predict = build_detector_predict_fn(det_cfg=make_cfg(), device=dev)
+        ap, per_class, kept = mean_ap(predict, scenes)
+        ref = JAX_MEAN_AP[capacity]
+        report["accuracy"][capacity] = dict(scenes=len(scenes), mean_ap=ap, per_class=per_class,
+                                            jax_mean_ap=ref, kept_boxes=int(sum(kept)))
+        log(f"detection ({capacity}), bf16 as served, {len(scenes)} scenes: mean AP {ap:.4f} at "
+            f"the WOD IoUs (per class {per_class}), the JAX package's {ref:.4f} on the CPU")
+        if not abs(ap - ref) <= DET_AP_MARGIN:
+            fail(f"detection ({capacity}): mean AP {ap:.4f} is not within {DET_AP_MARGIN} of "
+                 f"the JAX package's {ref:.4f}")
+        del predict
+
+        drive = drive_detector(dev, capacity)
+        report["drive"][capacity] = drive
+        log(f"detection drive ({capacity}), {N_DRIVE} frames of {drive['points_per_frame']} "
+            f"points: {drive['ms_per_frame_median']:.2f} ms per frame (predict "
+            f"{drive['predict_ms_median']:.2f} ms by CUDA events), {drive['launches_per_frame']:.0f} "
+            f"launches and {drive['host_syncs_per_frame']} host syncs per frame (predict "
+            f"{drive['host_syncs_in_predict']}), device idle {drive['device_idle_share']:.3f}; "
+            f"{drive['objects_followed']} of {drive['objects_in_scene']} objects followed by one "
+            f"ID, top speed {drive['top_speed_m_s']:.2f} m/s; per object {drive['per_object']}; "
+            f"spans {drive['spans']}")
+        if capacity == "reference":
+            if drive["objects_followed"] < DRIVE_MIN_OBJECTS:
+                fail(f"detection drive: {drive['objects_followed']} objects followed by one ID "
+                     f"over {DRIVE_MIN_FRAMES} frames, expected at least {DRIVE_MIN_OBJECTS}")
+            if not drive["top_speed_m_s"] < DRIVE_MAX_SPEED:
+                fail(f"detection drive: a track of a static object reports "
+                     f"{drive['top_speed_m_s']:.2f} m/s")
+            ins = drive_detector(dev, capacity, ins_history=True)
+            report["drive"]["reference_ins_history"] = ins
+            log(f"detection drive with the history aged by the INS's motion (not judged): "
+                f"{ins['objects_followed']} objects followed, top speed "
+                f"{ins['top_speed_m_s']:.2f} m/s, per object {ins['per_object']}")
+        torch.cuda.empty_cache()
+    report["p2p_launches"] = p2p_reduce.launches
+    if p2p_reduce.launches != 0:
+        fail(f"detection: p2p_reduce launched {p2p_reduce.launches} times; no SLAM runs here")
+    return report
+
+
 def main() -> None:
     try:
         import torch
@@ -1122,12 +1410,17 @@ def main() -> None:
                            dict(lio=cfg, keyframe_delta_trans=1.5, optimize_every=8))
     icp_odom_report = run_icp_odometry(dev, card)
 
+    # ---- 8. detection -------------------------------------------------------
+    det_report = run_detection(dev, card)
+    p2p_report["launches_detection"] = det_report["p2p_launches"]
+
     print(json.dumps({"lio_step": lio_report}))
     print(json.dumps({"mapping": mapping_report}))
     print(json.dumps({"lio_step_points": points_report}))
     print(json.dumps({"localization": loc_report}))
     print(json.dumps({"rtkm": rtkm_report}))
     print(json.dumps({"icp_odometry": icp_odom_report}))
+    print(json.dumps({"detection": det_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

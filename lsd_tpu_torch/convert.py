@@ -1,10 +1,13 @@
-"""Carry state between the JAX package and the port.
+"""Carry state and weights between the JAX package and the port.
 
 SLAM has no weights: what the two packages must share to continue one run
 is state: the LIO filter state (navigation state, covariance, local map of
 either type, map centre and flags), the ScanContext database, a padded
 pose graph, the localizer's UKF state and its NDT map.  Both directions go
-through numpy.
+through numpy.  The detector has weights: ``detector_params_from_flax``
+turns a flax parameter tree (a shipped checkpoint as
+``models/params_io.load_params`` reads it) into the ``state_dict`` of the
+port's ``CenterPointDetector``, ``detector_params_to_flax`` the other way.
 
 - ``*_from_numpy(tree, device)`` takes the JAX object after
   ``jax.device_get`` (numpy leaves, fields read by name, so this module
@@ -25,6 +28,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .models.detector import CenterPointDetector
 from .ops.hashmap import VoxelHashMap
 from .ops.surfel import SurfelMap
 from .slam import posegraph as pg
@@ -160,3 +164,109 @@ def ndt_map_from_numpy(tree, device: DeviceLike = None) -> NdtMap:
 
 def ndt_map_to_numpy(m: NdtMap) -> dict:
     return {f: _a(v) for f, v in zip(NdtMap._fields, m)}
+
+
+# --------------------------------------------------------------------------
+# detector weights.  Layouts: flax Dense (in, out) -> Linear (out, in); Conv
+# HWIO -> Conv2d OIHW; ConvTranspose HWIO -> ConvTranspose2d (I, O, kH, kW)
+# with both spatial axes flipped (flax does not flip a transposed conv's
+# kernel, PyTorch's placement is that of a flipped one); norm "scale" ->
+# "weight".  The backbone's up-path modules are numbered by type in flax
+# (Conv_n for the stages already at the output stride, which come first,
+# then ConvTranspose_n) and by stage in ``backbone.ups``.
+
+_TOP = {"PillarVFE_0": "vfe", "VoxelHeightEncoder_0": "encoder", "BEVBackbone_0": "backbone",
+        "CenterHead_0": "head"}
+_VFE = {"Dense_0": "linear", "LayerNorm_0": "norm", "Conv_0": "conv", "GroupNorm_0": "norm"}
+_BLOCK = {"Conv_0": "conv0", "Conv_1": "conv1", "Conv_2": "shortcut", "GroupNorm_0": "norm0",
+          "GroupNorm_1": "norm1"}
+
+
+def _torch_module(path, n_conv_ups: int) -> str:
+    """The port's module name for a flax module path (a tuple of names)."""
+    top, *rest = path
+    out = [_TOP[top]]
+    if top == "BEVBackbone_0":
+        if rest[0].startswith("ResBlock_"):
+            out += ["blocks", rest[0].split("_")[1], _BLOCK[rest[1]]]
+        elif rest[0].startswith("ConvTranspose_"):
+            out += ["ups", str(n_conv_ups + int(rest[0].split("_")[1]))]
+        else:
+            out += ["ups", rest[0].split("_")[1]]
+    elif top == "CenterHead_0":
+        out += (["shared"] if rest[0] == "Conv_0"
+                else ["heads", *rest[0].rsplit("_", 1)])     # hm_conv1 -> heads.hm.conv1
+    else:
+        out.append(_VFE[rest[0]])
+    return ".".join(out)
+
+
+def _flax_module(name: str, n_conv_ups: int):
+    """The flax module path for one of the port's module names."""
+    parts = name.split(".")
+    flax_top = {v: k for k, v in _TOP.items()}[parts[0]]
+    if parts[0] == "backbone":
+        if parts[1] == "blocks":
+            return (flax_top, f"ResBlock_{parts[2]}", {v: k for k, v in _BLOCK.items()}[parts[3]])
+        i = int(parts[2])
+        return (flax_top, f"Conv_{i}" if i < n_conv_ups else f"ConvTranspose_{i - n_conv_ups}")
+    if parts[0] == "head":
+        return (flax_top, "Conv_0" if parts[1] == "shared" else f"{parts[2]}_{parts[3]}")
+    kind = {"linear": "Dense_0", "conv": "Conv_0"}.get(parts[1])
+    norm = "LayerNorm_0" if parts[0] == "vfe" else "GroupNorm_0"
+    return (flax_top, kind or norm)
+
+
+def detector_params_from_flax(tree) -> "dict[str, torch.Tensor]":
+    """The ``state_dict`` of the port's ``CenterPointDetector`` (float32, on
+    the CPU) from a flax parameter tree: ``{"params": {...}}`` or the inner
+    dict."""
+    params = tree.get("params", tree)
+    bb = params.get("BEVBackbone_0", {})
+    n_conv_ups = sum(k.startswith("Conv_") for k in bb)
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+                continue
+            a = np.asarray(v, np.float32)
+            kind = path[-1]
+            if k == "kernel" and kind.startswith("Dense"):
+                a = a.T
+            elif k == "kernel" and kind.startswith("ConvTranspose"):
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif k == "kernel":
+                a = a.transpose(3, 2, 0, 1)
+            leaf = {"kernel": "weight", "scale": "weight"}.get(k, k)
+            out[_torch_module(path, n_conv_ups) + "." + leaf] = torch.tensor(
+                np.ascontiguousarray(a))
+    walk(params, ())
+    return out
+
+
+def detector_params_to_flax(model: CenterPointDetector) -> dict:
+    """``{"params": {...}}`` of numpy float32 arrays for the reference's
+    ``CenterPointDetector`` with the weights of the port's ``model``."""
+    n_conv_ups = sum(isinstance(m, torch.nn.Conv2d) for m in model.backbone.ups)
+    params: dict = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            continue
+        w = _a(mod.weight)
+        if isinstance(mod, torch.nn.Linear):
+            leaf = dict(kernel=w.T)
+        elif isinstance(mod, torch.nn.ConvTranspose2d):
+            leaf = dict(kernel=w.transpose(2, 3, 0, 1)[::-1, ::-1])
+        elif isinstance(mod, torch.nn.Conv2d):
+            leaf = dict(kernel=w.transpose(2, 3, 1, 0))
+        else:
+            leaf = dict(scale=w)
+        leaf["bias"] = _a(mod.bias)
+        node = params
+        for part in _flax_module(name, n_conv_ups):
+            node = node.setdefault(part, {})
+        node.update({k: np.ascontiguousarray(v, np.float32) for k, v in leaf.items()})
+    return {"params": params}

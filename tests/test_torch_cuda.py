@@ -28,6 +28,14 @@ sums; the covariance cancels in float32); ``ndt_align`` on one map agrees
 within 1e-4 and ``localize_track_step`` within 1e-3, and neither makes a
 host sync; a short ``Localizer`` drive gives the same statuses and poses
 within 0.02 m.
+
+The detection path: ``voxelize_dynamic`` and the BEV scatters give equal
+results on the card (a stable sort; each scatter target receives one
+pillar), rotated IoU, GIoU and overlap agree within 1e-5 + 1e-5 of the
+value and NMS keeps the same boxes, the float32 network with TF32 off
+agrees within 1e-3 of each map's largest magnitude (cuDNN picks other
+convolution algorithms), the tracker keeps the same tracks, and
+``build_detector_predict_fn``'s function makes no host sync.
 """
 import numpy as np
 import pytest
@@ -539,3 +547,116 @@ def test_localizer_on_card_matches_cpu(cuda, tmp_path):
     for k, (a, b) in enumerate(zip(outs["cuda:0"], outs["cpu"])):
         np.testing.assert_allclose(a["pose"], b["pose"], rtol=0, atol=0.02, err_msg=str(k))
         assert np.linalg.norm(a["pose"][:3, 3] - scans[k][5][:3, 3]) < 0.1
+
+
+def _scene(seed=0):
+    from lsd_tpu_torch.tools.profile_detector import scene_config
+    from lsd_tpu_torch.training.data import SyntheticDetectionDataset
+    sc = SyntheticDetectionDataset(scene_config(), seed=seed).scene()
+    return sc["points"], sc["mask"]
+
+
+@pytest.mark.parametrize("capacity", ["reference", "true_reference"])
+def test_voxelize_and_scatter_on_card_equal_cpu(cuda, capacity):
+    from lsd_tpu_torch.models.vfe import scatter_to_bev, scatter_to_bev_s2d
+    from lsd_tpu_torch.ops.voxelize import voxelize_dynamic
+    from lsd_tpu_torch.tools.profile_detector import CAPACITIES
+    cfg = CAPACITIES[capacity]()
+    pts, mask = _scene(1)
+    pts = np.concatenate([pts, pts + [0.05, -0.03, 0.0, 0.0]]).astype(np.float32)
+    mask = np.concatenate([mask, mask])
+    feats = torch.as_tensor(np.random.default_rng(2).normal(size=(cfg.max_voxels, 16)),
+                            dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        vox = voxelize_dynamic(torch.as_tensor(pts, device=dev), torch.as_tensor(mask, device=dev),
+                               cfg.voxel_size, cfg.pc_range, cfg.max_voxels,
+                               cfg.max_points_per_voxel)
+        f = feats.to(dev) * vox[3][:, None]
+        bev = (scatter_to_bev_s2d(f, vox[1], vox[3], cfg.grid_hw, cfg.s2d_factor)
+               if cfg.s2d_factor > 1 else scatter_to_bev(f, vox[1], vox[3], cfg.grid_hw))
+        out[str(dev)] = [a.cpu() for a in (*vox, bev)]
+    for a, b in zip(out["cpu"], out["cuda:0"]):
+        assert torch.equal(a, b)
+    counts = out["cpu"][2]
+    assert int((counts > 0).sum()) > 5000 and int((counts == cfg.max_points_per_voxel).sum()) > 100
+
+
+def test_iou_and_nms_on_card_match_cpu_and_make_no_sync(cuda):
+    from lsd_tpu_torch.ops import iou3d
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    rng = np.random.default_rng(3)
+    boxes = np.c_[rng.uniform(-15, 15, (256, 2)), rng.uniform(-0.5, 1.5, 256),
+                  rng.uniform(0.5, 5.0, (256, 3)), rng.uniform(-np.pi, np.pi, 256)]
+    boxes = torch.as_tensor(boxes, dtype=torch.float32)
+    scores = torch.as_tensor(rng.uniform(0, 1, 256), dtype=torch.float32)
+    mask = torch.as_tensor(rng.uniform(size=256) > 0.2)
+    for fn in ("boxes_overlap_bev", "boxes_iou3d", "boxes_giou3d"):
+        a = getattr(iou3d, fn)(boxes, boxes[:100])
+        b = getattr(iou3d, fn)(boxes.to(cuda), boxes[:100].to(cuda)).cpu()
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    for thresh, keep in ((0.1, 128), (0.5, 64)):
+        ci, ck = iou3d.nms_bev(boxes, scores, mask, thresh, keep)
+        args = (boxes.to(cuda), scores.to(cuda), mask.to(cuda), thresh, keep)
+        iou3d.nms_bev(*args)
+        (gi, gk), sites = sync_sites(lambda: iou3d.nms_bev(*args))
+        assert not sites, sites
+        assert torch.equal(gk.cpu(), ck) and torch.equal(gi.cpu()[ck], ci[ck])
+        assert 5 < int(ck.sum()) < keep
+
+
+@pytest.mark.parametrize("s2d", [1, 2])
+def test_detector_float32_on_card_matches_cpu(cuda, s2d):
+    from lsd_tpu_torch.models.detector import (CenterPointDetector, DetectorConfig,
+                                               init_detector_params)
+    cfg = DetectorConfig(pc_range=(-25.6, -25.6, -3.0, 25.6, 25.6, 3.0),
+                         voxel_size=(0.2 / s2d, 0.2 / s2d, 6.0), max_voxels=65536,
+                         max_points_per_voxel=8, bev_stride=2, s2d_factor=s2d)
+    model = CenterPointDetector(cfg, dtype=torch.float32)
+    init_detector_params(model, torch.Generator().manual_seed(0))
+    pts, mask = _scene(2)
+    pts[:, :2] *= 0.4
+    with torch.no_grad():
+        ref = model(torch.as_tensor(pts), torch.as_tensor(mask))
+        got = model.to(cuda)(torch.as_tensor(pts, device=cuda), torch.as_tensor(mask, device=cuda))
+    for k, v in ref.items():
+        err = float((got[k].cpu() - v).abs().max()) / float(v.abs().max())
+        assert err <= 1e-3, (k, err)
+
+
+def test_tracker_on_card_matches_cpu(cuda):
+    from lsd_tpu_torch.detection.tracker import Tracker3D, TrackerConfig
+    rng = np.random.default_rng(5)
+    base = np.c_[rng.uniform(-30, 30, (10, 2)), np.full(10, 0.8),
+                 np.tile([4.5, 1.9, 1.6], (10, 1)), rng.uniform(-3, 3, 10)]
+    motion = np.eye(4)
+    motion[0, 3] = -1.0
+    trackers = [Tracker3D(TrackerConfig(), device=d) for d in ("cpu", cuda)]
+    for k in range(15):
+        boxes = base.copy()
+        boxes[:, 0] -= k
+        boxes = boxes[rng.uniform(size=10) > 0.15] + rng.normal(0, 0.03, (1, 7))
+        scores = rng.uniform(0.2, 0.9, len(boxes))
+        outs = [t.update(boxes, scores, np.zeros(len(boxes), int), 0.1, motion if k else None)
+                for t in trackers]
+        assert [o["id"] for o in outs[0]["objects"]] == [o["id"] for o in outs[1]["objects"]]
+        for a, b in zip(*(o["objects"] for o in outs)):
+            np.testing.assert_allclose(a["box"], b["box"], rtol=0, atol=1e-9)
+
+
+def test_predict_on_card_makes_no_host_sync(cuda):
+    from lsd_tpu_torch.detection.accumulate import FrameAccumulator
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.runtime.modules import build_detector_predict_fn
+    from lsd_tpu_torch.tools.profile_detector import ego_drive
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    fn = build_detector_predict_fn(det_cfg=DetectorConfig.reference_capacity(), with_seg=True)
+    frames, _ = ego_drive(2)
+    acc = FrameAccumulator(2, frames[0][0].shape[0])
+    for f in frames:
+        pts, msk = acc.push(*f)
+    fn(pts, msk)
+    out, sites = sync_sites(lambda: fn(pts, msk))
+    assert not sites, sites
+    assert all(t.device.type == "cuda" for t in out)
+    assert out[0].shape == (128, 7) and int(out[3].sum()) > 3

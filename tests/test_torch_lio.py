@@ -195,11 +195,17 @@ def test_import_leaves_jax_out():
     assert {"lsd_tpu_torch.slam.mapper", "lsd_tpu_torch.slam.localization",
             "lsd_tpu_torch.slam.ukf", "lsd_tpu_torch.slam.rtkm", "lsd_tpu_torch.slam.icp_odometry",
             "lsd_tpu_torch.slam.visual_reloc", "lsd_tpu_torch.slam.bow",
-            "lsd_tpu_torch.geometry.utm", "lsd_tpu_torch.tools.profile_localizer"} <= set(mods)
-    assert len(mods) > 33
-    code = ("import sys; import lsd_tpu_torch, " + ", ".join(mods) + "; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lsd_tpu.')) "
-            "or m == 'lsd_tpu']; print(bad); sys.exit(1 if bad else 0)")
+            "lsd_tpu_torch.geometry.utm", "lsd_tpu_torch.tools.profile_localizer",
+            "lsd_tpu_torch.ops.iou3d", "lsd_tpu_torch.models.detector",
+            "lsd_tpu_torch.models.params_io", "lsd_tpu_torch.detection.tracker",
+            "lsd_tpu_torch.detection.eval", "lsd_tpu_torch.runtime.modules",
+            "lsd_tpu_torch.training.data", "lsd_tpu_torch.tools.profile_detector"} <= set(mods)
+    assert len(mods) > 50
+    pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
+    code = ("import sys; import lsd_tpu_torch, " + ", ".join(pkgs + mods) + "; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'msgpack', 'lsd_tpu') "
+            "or m.startswith(('jax.', 'flax.', 'msgpack.', 'lsd_tpu.'))]; "
+            "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -220,7 +226,7 @@ def test_no_jax_import_in_port_sources():
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "lsd_tpu", "flax", "optax"), f"{f}: {mod}"
+            assert top not in ("jax", "jaxlib", "lsd_tpu", "flax", "optax", "msgpack"), f"{f}: {mod}"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
