@@ -92,6 +92,30 @@ Phases, in order; any failure exits non-zero:
    the whole frame on the host clock), launches, host syncs, the device's
    idle share and the time by span, at both capacities; unjudged, the same
    drive with the history aged by the INS's convention of the motion.
+9. The camera models, from their shipped checkpoints, read with the port's
+   reader.  The float32 ``Mono3D`` (TF32 off) on the card against the host's
+   CPU on one 384 x 640 scene: maps within CAM_MAP_RTOL of each map's largest
+   magnitude, the same decoded valid boxes; a control run with cuDNN's TF32
+   on must exceed that bar.  Mean AP on the card over the
+   16 scenes of each model's evaluation (``training/camera_data.py``): Mono3D
+   (float32) within MONO3D_AP_BAR of the JAX package's JAX_MONO3D_AP, Yolo2D
+   (bf16, 4 classes) within YOLO_AP_BAR of JAX_YOLO_AP; ``nms_2d`` and
+   Mono3D's model and decode make no host sync.  ``Mono3DInfer.detect`` on a
+   1920 x 1080 uint8 frame (resized on the card).  ``DetectModule.process``
+   with the 0.2 m LiDAR checkpoint over CAM_DRIVE frames of phase 8's drive,
+   each with the camera cam0's view of the drive's own objects, with the
+   mono3d fusion on and off: finite objects, a tracked object in each of the
+   last CAM_MIN_TRACKED_FRAMES frames; with fusion, LiDAR objects in each of
+   those frames, every one of them back out of the fusion, and both
+   matched and camera-only objects in the fused lists.
+   ``TrafficlightModule.process`` on N_TL_FRAMES 1920 x 1080 frames with the
+   4-class function injected (the 8-class default must refuse the
+   checkpoint): the model reached on every frame, proto-ready ``lights``,
+   the map light matched in at least TL_MIN_FOUND.  ``quantized_matmul``'s
+   ``torch._int_mm`` accumulators equal the CPU's; the Mono3D checkpoint
+   through ``save_quantized`` and back, served on the card (mean AP
+   reported).  Reported: ms per call (CUDA events), launches, host syncs,
+   the device's idle share, and spans ``camera/*`` of the module's frame.
 
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
@@ -143,6 +167,22 @@ DET_MAP_RTOL, DET_BOX_ATOL = 1e-3, 1e-3
 # object is followed in a frame by the nearest track within DRIVE_GATE_M
 DRIVE_MIN_OBJECTS, DRIVE_MIN_FRAMES, DRIVE_GATE_M = 2, 15, 2.0
 DRIVE_MAX_SPEED, DRIVE_MIN_AGE = 1.5, 5
+# phase 9: mean APs of the JAX package's camera models on the 16 scenes of
+# their evaluations, on the CPU (jax 0.9.0): python -m tests.test_torch_camera_weights.
+# One box gained or lost moves Mono3D's mean by up to 1/7/4 = 0.036 (7
+# pedestrians, the fewest of a class) and Yolo2D's by up to 1/6/4 = 0.042
+# (6 yellow lights; the 2 "off" lights would move it by 0.125)
+JAX_MONO3D_AP, MONO3D_AP_BAR = 0.5667, 0.04
+JAX_YOLO_AP, YOLO_AP_BAR = 0.9356060606060606, 0.05
+# the float32 Mono3D, card against CPU, TF32 off: maps within this share of
+# each map's largest magnitude (the CPU parity bar against JAX; a control
+# run with cuDNN's TF32 on must exceed it), valid boxes within CAM_BOX_RTOL
+# of 1 + |value|
+CAM_MAP_RTOL, CAM_BOX_RTOL = 1e-4, 1e-3
+CAM_HW = (1080, 1920)                # the camera frames' size
+CAM_HEIGHT_M = 1.5                   # the drive's camera above the ground
+N_CAM_DRIVE, CAM_MIN_TRACKED_FRAMES = 20, 15
+N_TL_FRAMES, TL_MIN_FOUND = 20, 16
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -1306,6 +1346,515 @@ def run_detection(dev, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the camera path
+
+
+def camera_street_image(hw=CAM_HW, seed=7):
+    """A street scene of the Mono3D evaluation's kind (shaded cuboids of the
+    four classes) rendered at the camera's own size, as uint8, and its
+    intrinsic."""
+    from lsd_tpu_torch.training.camera_data import Mono3DSceneConfig, SyntheticMono3DDataset
+    ds = SyntheticMono3DDataset(Mono3DSceneConfig(hw=hw), seed=seed)
+    img = ds.scene()[0]
+    return np.round(img * 255).astype(np.uint8), ds.K
+
+
+def drive_camera_frames(objects, n, step, hw=CAM_HW, seed=7):
+    """The front camera's view of ``ego_drive``'s objects in each of its n
+    frames (the vehicle moves ``step`` m along +x per frame), drawn as the
+    Mono3D evaluation draws its scenes (shaded cuboids on a sky and ground
+    background) at the camera's own size, as uint8.  The camera sits
+    CAM_HEIGHT_M above the LiDAR's origin (on the ground), looking along +x
+    (camera z -> lidar x, camera x -> lidar -y, camera y -> lidar -z).
+    Returns the frames and the intrinsic."""
+    from lsd_tpu_torch.training import camera_data as cd
+    ds = cd.SyntheticMono3DDataset(cd.Mono3DSceneConfig(hw=hw, cam_height=CAM_HEIGHT_M), seed=seed)
+    rng, K, (H, W) = ds.rng, ds.K, hw
+    horizon = int(K[1, 2])
+    bg = np.empty((H, W, 3), np.float32)
+    bg[:horizon] = rng.uniform(0.55, 0.85) + rng.normal(0, 0.02, (horizon, W, 3))
+    gnd = rng.uniform(0.25, 0.45)
+    bg[horizon:] = (np.linspace(gnd * 1.2, gnd * 0.8, H - horizon)[:, None, None]
+                    + rng.normal(0, 0.02, (H - horizon, W, 3)))
+    boxes, labels = objects
+    albedo = {0: (0.55, 0.1), 1: (0.5, 0.2), 2: (0.45, 0.15), 3: (0.85, 0.05)}
+    colours = [np.clip(albedo[int(c)][0] + rng.normal(0, albedo[int(c)][1], 3), 0.05, 1.0)
+               for c in labels]
+    frames = []
+    for k in range(n):
+        img = bg.copy()
+        # lidar (x, y, z, l, w, h, yaw) -> camera (x, y, z, l, w, h, yaw), the
+        # inverse of mono3d_infer.cam_box_to_lidar's rotation
+        cam = [(np.asarray([-b[1], CAM_HEIGHT_M - b[2], b[0] - k * step, b[3], b[4], b[5],
+                            np.arctan2(-np.cos(b[6]), -np.sin(b[6]))]), colours[i])
+               for i, b in enumerate(boxes)]
+        cam = [(b, c) for b, c in cam if b[2] - max(b[3], b[4]) > 1.0]
+        for b, colour in sorted(cam, key=lambda bc: -bc[0][2]):     # far first
+            corners = ds._corners(b)
+            ctr = corners.mean(0)
+            for f in ds._FACES:
+                q = corners[list(f)]
+                nrm = np.cross(q[1] - q[0], q[3] - q[0])
+                nrm /= np.linalg.norm(nrm)
+                if np.dot(nrm, ctr - q.mean(0)) > 0:
+                    nrm = -nrm
+                if np.dot(nrm, q.mean(0)) > 0:
+                    continue
+                shade = np.clip(colour * (0.35 + 0.65 * abs(float(np.dot(nrm, cd._LIGHT)))),
+                                0.02, 1.0).astype(np.float32)
+                cd._fill_quad(img, shade, ds._project(q))
+        frames.append(np.round(np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return frames, K
+
+
+def traffic_light_frame(seed, hw=CAM_HW):
+    """A traffic-light scene of the Yolo2D evaluation's kind drawn at 256 x
+    320 and scaled to the camera's size by nearest neighbour (BGR order is
+    the scene's RGB order: the model was trained on it); returns the uint8
+    frame and the scene's first light box in its pixels."""
+    from lsd_tpu_torch.training.camera_data import (SyntheticTrafficLightDataset,
+                                                    TrafficLightSceneConfig)
+    img, boxes, _ = SyntheticTrafficLightDataset(TrafficLightSceneConfig(), seed=seed).scene()
+    h, w = img.shape[:2]
+    rows = np.arange(hw[0]) * h // hw[0]
+    cols = np.arange(hw[1]) * w // hw[1]
+    frame = np.round(img[rows][:, cols] * 255).astype(np.uint8)
+    return frame, boxes[0] * np.asarray([hw[1] / w, hw[0] / h] * 2)
+
+
+def profile_calls(fn, n, prefixes=("camera/", "detect/")):
+    """Launches, device busy ms and idle share per call of ``fn`` over n
+    calls under the profiler (host clock, ending in a synchronize), and the
+    host ms and launches of the spans named with ``prefixes`` (their ranges
+    also show on the device's timeline, not as kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lsd_tpu_torch.tools.profile_lio import trace_report
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = trace_report(prof, n, wall, prefixes)
+    return dict(wall_ms_traced=rep["wall_ms_per_scan"],
+                launches=rep["kernel_launches_per_scan"],
+                device_busy_ms=rep["device_busy_ms_per_scan"],
+                device_idle_share=rep["device_idle_share"],
+                spans={k: dict(host_ms=round(v["host_ms"], 3), launches=v["launches"])
+                       for k, v in rep["spans"].items()},
+                top_kernels=rep["kernels"][:6])
+
+
+def syncs_per_call(fn, n=3):
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    total, sites = 0, {}
+    for _ in range(n):
+        for site, c in sync_sites(fn)[1].items():
+            sites[site] = sites.get(site, 0) + c
+            total += c
+    return total / n, {k: v / n for k, v in sites.items()}
+
+
+def check_mono3d_fp32(dev, tree):
+    """The float32 Mono3D on the card (TF32 off) against the host's CPU on
+    one 384 x 640 scene of the evaluation: maps and decoded valid boxes.
+    A control run on the card with cuDNN's TF32 on must break the maps'
+    bar, or the bar could not see the fault it is there for."""
+    import torch
+    from lsd_tpu_torch.convert import load_camera_params
+    from lsd_tpu_torch.models.mono3d import Mono3D, Mono3DConfig, decode_mono3d, maps_hwc
+    from lsd_tpu_torch.training.camera_data import (Mono3DSceneConfig, SyntheticMono3DDataset,
+                                                    default_intrinsic)
+    from lsd_tpu_torch.utils.precision import set_slam_precision
+    img = SyntheticMono3DDataset(Mono3DSceneConfig(hw=(384, 640)), batch_size=1,
+                                 seed=999).batch()["image"][0]
+    K = default_intrinsic((384, 640)).astype(np.float32)
+    out = {}
+    for d, tf32 in (("cpu", False), (dev, False), (dev, True)):
+        set_slam_precision()
+        torch.backends.cudnn.allow_tf32 = tf32
+        model = Mono3D(Mono3DConfig())
+        load_camera_params(model, tree)
+        model = model.to(d).eval()
+        x = torch.as_tensor(img, device=d).permute(2, 0, 1)[None]
+        with torch.inference_mode():
+            model(x)                       # first use: library set-up
+            if d != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps = maps_hwc(model(x))
+            dec = decode_mono3d(maps, torch.as_tensor(K, device=d), 64, 4)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        out[(str(d), tf32)] = dict(maps={k: v.cpu() for k, v in maps.items()},
+                                   dec=[a.cpu().numpy() for a in dec], ms=ms)
+    set_slam_precision()
+    cpu, card, control = out[("cpu", False)], out[(str(dev), False)], out[(str(dev), True)]
+
+    def rel_err(run):
+        return {k: float((run["maps"][k] - v).abs().max() / v.abs().max())
+                for k, v in cpu["maps"].items()}
+    map_err, tf32_err = rel_err(card), rel_err(control)
+    log(f"camera, float32 Mono3D maps against the CPU: TF32 off {map_err}, TF32 on {tf32_err} "
+        f"(bar {CAM_MAP_RTOL})")
+    if max(map_err.values()) > CAM_MAP_RTOL:
+        fail(f"camera: float32 Mono3D maps differ between card and CPU: {map_err}")
+    if max(tf32_err.values()) <= CAM_MAP_RTOL:
+        fail(f"camera: the control run with TF32 on stays within the bar {CAM_MAP_RTOL}: "
+             f"{tf32_err}")
+    (cb, cs, cl, cv), (gb, gs, gl, gv) = cpu["dec"], card["dec"]
+    if not (np.array_equal(cv, gv) and np.array_equal(cl[cv], gl[cv])):
+        fail("camera: the decoded valid boxes of the float32 Mono3D differ between card and CPU")
+    box_err = float(np.max(np.abs(gb[cv] - cb[cv]) / (1.0 + np.abs(cb[cv])))) if cv.any() else 0.0
+    if box_err > CAM_BOX_RTOL:
+        fail(f"camera: decoded Mono3D boxes differ between card and CPU by {box_err}")
+    report = dict(map_rel_err=map_err, map_rel_err_tf32_control=tf32_err,
+                  valid_boxes=int(cv.sum()), box_rel_err=box_err,
+                  score_err=float(np.max(np.abs(gs - cs))), fp32_ms_card=card["ms"],
+                  fp32_ms_cpu=cpu["ms"])
+    log(f"camera, float32 Mono3D at 384 x 640, card against CPU: {report}")
+    return report
+
+
+def camera_detect_config(K, camera: bool):
+    """``DetectModule``'s config: the 0.2 m LiDAR checkpoint, two
+    accumulated frames, the drives' ROI, and with ``camera`` the mono3d
+    branch on camera cam0, CAM_HEIGHT_M above the LiDAR, looking along its
+    +x (camera z -> lidar x, camera x -> lidar -y, camera y -> lidar -z)."""
+    import copy
+    from lsd_tpu_torch.runtime.config import AttrDict, DEFAULT_CONFIG
+    cfg = AttrDict(copy.deepcopy(DEFAULT_CONFIG))
+    cfg.detection.enable = True
+    cfg.detection.capacity = "reference"
+    cfg.detection.mono3d = dict(enable=camera, weights="", camera="cam0", score_threshold=0.3)
+    cfg.camera = [dict(name="cam0", intrinsic_parameters=[K[0, 0], K[1, 1], K[0, 2], K[1, 2]],
+                       extrinsic_parameters=[0.0, 0.0, CAM_HEIGHT_M, 0.0, -90.0, -90.0])]
+    r, e = 60.0, [[-2.5, -1.2], [2.5, -1.2], [2.5, 1.2], [-2.5, 1.2]]
+    cfg.roi = [dict(contour=[[-r, -r], [r, -r], [r, r], [-r, r]], is_included=True),
+               dict(contour=e, is_included=False)]
+    return cfg
+
+
+def detect_frames(n):
+    """``ego_drive``'s frames as the runtime's frame dicts, each with the
+    camera's view of the drive's objects (``drive_camera_frames``);
+    ``motion_t`` is the drive's motion (the tracker's convention, as phase 8
+    passes it).  Returns the frames and the camera's intrinsic."""
+    from lsd_tpu_torch.tools.profile_detector import ego_drive
+    frames, objects = ego_drive(n)
+    images, K = drive_camera_frames(objects, n, -frames[1][2][0, 3])
+    out = []
+    for k, ((pts, mask, motion), img) in enumerate(zip(frames, images)):
+        t = 1_000_000 + 100_000 * k
+        d = dict(frame_start_timestamp=t, frame_timestamp_monotonic=t, timestep=100_000,
+                 points={"top": pts[mask]}, points_attr={}, lidar_valid=True,
+                 image={"cam0": img}, image_valid=True)
+        if motion is not None:
+            d.update(motion_t=motion, motion_valid=True)
+        out.append(d)
+    return out, K
+
+
+def drive_detect_module(dev, camera):
+    """``DetectModule.process`` over CAM_DRIVE frames after a warm-up on a
+    throwaway module; returns the report and the objects per frame."""
+    import torch
+    from lsd_tpu_torch.runtime.interface import clear_interfaces
+    from lsd_tpu_torch.runtime.modules import DetectModule
+    from torch.profiler import record_function
+    n_all = N_DRIVE_WARM + N_CAM_DRIVE + N_DRIVE_PROFILED + N_DRIVE_SYNC
+    frames, K = detect_frames(n_all)
+
+    def module():
+        clear_interfaces()
+        cfg = camera_detect_config(K, camera)
+        mod = DetectModule(cfg, device=dev)
+        mod.setup(cfg)
+        return mod
+    warm = module()
+    for d in frames[:N_DRIVE_WARM]:
+        warm.process(dict(d))
+    mod = module()
+    fused_kinds, lidar_in = {}, []
+
+    def spanned(fn, name):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+    mod.predict_fn = spanned(mod.predict_fn, "camera/lidar_predict")
+    mod.tracker.update = spanned(mod.tracker.update, "camera/tracker")
+    if camera:
+        mod.mono3d.detect = spanned(mod.mono3d.detect, "camera/mono3d_detect")
+        fusion = spanned(mod._run_mono3d_fusion, "camera/fusion")
+
+        def counted_fusion(d, frame, lidar_objs):
+            out = fusion(d, frame, lidar_objs)
+            for o in out:
+                fused_kinds[o.get("fused")] = fused_kinds.get(o.get("fused"), 0) + 1
+            # every LiDAR object comes out, matched or not
+            from_lidar = sum(o.get("fused") in ("matched", "unmatch_lidar") for o in out)
+            if from_lidar != len(lidar_objs):
+                fail(f"camera drive: fusion took {len(lidar_objs)} LiDAR objects and gave back "
+                     f"{from_lidar}")
+            lidar_in.append(len(lidar_objs))
+            return out
+        mod._run_mono3d_fusion = counted_fusion
+    history, wall = [], []
+    for d in frames[N_DRIVE_WARM:N_DRIVE_WARM + N_CAM_DRIVE]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.process(dict(d))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        history.append(out["objects"])
+    rest = frames[N_DRIVE_WARM + N_CAM_DRIVE:]
+    it = iter(rest[:N_DRIVE_PROFILED])
+    prof = profile_calls(lambda: mod.process(dict(next(it))), N_DRIVE_PROFILED)
+    it = iter(rest[N_DRIVE_PROFILED:])
+    syncs, sites = syncs_per_call(lambda: mod.process(dict(next(it))), N_DRIVE_SYNC)
+    for k, objs in enumerate(history):
+        for o in objs:
+            if not np.all(np.isfinite(np.asarray(o["box"], float))):
+                fail(f"camera drive (camera={camera}): frame {k} has a non-finite object {o}")
+    tracked = [len(h) for h in history]
+    report = dict(camera=camera, frames=N_CAM_DRIVE, ms_per_frame_median=float(np.median(wall[1:])),
+                  ms_per_frame_min=float(np.min(wall[1:])), ms_per_frame_max=float(np.max(wall)),
+                  tracked_per_frame=tracked, host_syncs_per_frame=syncs, host_sync_sites=sites,
+                  fused_kinds=fused_kinds, lidar_objects_per_frame=lidar_in[:N_CAM_DRIVE], **prof)
+    if min(tracked[-CAM_MIN_TRACKED_FRAMES:]) < 1:
+        fail(f"camera drive (camera={camera}): no tracked object in one of the last "
+             f"{CAM_MIN_TRACKED_FRAMES} frames: {tracked}")
+    if camera:
+        # the tracks must not rest on camera objects alone
+        if min(lidar_in[N_CAM_DRIVE - CAM_MIN_TRACKED_FRAMES:N_CAM_DRIVE]) < 1:
+            fail(f"camera drive: no LiDAR object reached the fusion in one of the last "
+                 f"{CAM_MIN_TRACKED_FRAMES} frames: {lidar_in[:N_CAM_DRIVE]}")
+        if not (fused_kinds.get("matched") and fused_kinds.get("unmatch_camera")):
+            fail(f"camera drive: a fusion kind never occurred: {fused_kinds}")
+    return report
+
+
+def run_trafficlight(dev, tree_path):
+    """TrafficlightModule.process over N_TL_FRAMES 1920 x 1080 frames, the
+    4-class function injected; each frame's pose puts the map light on the
+    scene's first light.  Returns the report."""
+    import torch
+    from lsd_tpu_torch.models.yolo2d import Yolo2DConfig
+    from lsd_tpu_torch.runtime.config import ConfigManager
+    from lsd_tpu_torch.runtime.trafficlight_module import TrafficlightModule, build_yolo_predict_fn
+    try:
+        build_yolo_predict_fn(tree_path, device=dev)
+        fail("trafficlight: the 8-class config took the 4-class checkpoint")
+    except ValueError as exc:
+        refusal = str(exc)
+    predict = build_yolo_predict_fn(tree_path, cfg=Yolo2DConfig(num_classes=4), device=dev)
+    calls = []
+
+    def counted(image):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = predict(image)
+        b.record()
+        calls.append((a, b))
+        return out
+    f, cx, cy, light = 1000.0, CAM_HW[1] / 2, CAM_HW[0] / 2, np.asarray([30.0, 0.0, 5.0])
+    cfg = ConfigManager().config
+    cfg.trafficlight = dict(enable=False, camera="front", intrinsic=[[f, 0, cx], [0, f, cy], [0, 0, 1]],
+                            image_size=[CAM_HW[1], CAM_HW[0]],
+                            lights=[dict(name="tl_0", position=light.tolist())])
+    mod = TrafficlightModule(cfg, device=dev)
+    mod.setup(cfg)
+    mod.set_model(counted)
+    frames = [traffic_light_frame(seed) for seed in range(N_TL_FRAMES + 2)]
+
+    def pose_for(box):
+        # the vehicle offset so that the light (30 m ahead) projects onto the box's centre
+        u, v = (box[0] + box[2]) / 2, (box[1] + box[3]) / 2
+        T = np.eye(4)
+        T[1, 3] = (u - cx) * light[0] / f
+        T[2, 3] = light[2] + (v - cy) * light[0] / f
+        return T
+    for img, box in frames[:2]:                                  # warm-up
+        mod.process(dict(image={"front": img}, slam_pose=pose_for(box)))
+    del calls[:]
+    wall, lights = [], []
+    for img, box in frames[2:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.process(dict(image={"front": img}, slam_pose=pose_for(box)))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        lights.append(out["lights"])
+    if len(calls) != N_TL_FRAMES:
+        fail(f"trafficlight: the model ran {len(calls)} times over {N_TL_FRAMES} frames")
+    keys = {"id", "color", "pictogram", "confidence", "name"}
+    for ls in lights:
+        for l in ls:
+            if not (set(l) >= keys and l["name"] == "tl_0" and np.isfinite(l["confidence"])):
+                fail(f"trafficlight: a lights entry is not proto-ready: {l}")
+    found = sum(len(ls) == 1 for ls in lights)
+    if found < TL_MIN_FOUND:
+        fail(f"trafficlight: the map light was matched in {found} of {N_TL_FRAMES} frames")
+    img = frames[2][0]
+    predict_ms = [a.elapsed_time(b) for a, b in calls]
+    syncs, sites = syncs_per_call(lambda: predict(img))
+    report = dict(frames=N_TL_FRAMES, model_calls=len(calls), lights_found=found,
+                  colors=[ls[0]["color"] if ls else None for ls in lights],
+                  ms_per_frame_median=float(np.median(wall)), ms_per_frame_max=float(np.max(wall)),
+                  predict_ms_median=float(np.median(predict_ms)),
+                  host_syncs_per_predict=syncs, host_sync_sites=sites,
+                  eight_class_refusal=refusal, **profile_calls(lambda: predict(img), 5))
+    log(f"trafficlight: {report}")
+    return report
+
+
+def check_quantized(dev, tree, scenes, intrinsic):
+    """quantized_matmul's int32 accumulators on the card against the CPU at
+    the reference test's shape (8 x 64 @ 64 x 32, rows padded) and at a
+    Mono3D 1x1 head's (15,360 x 64 @ 64 x 12, columns padded); then the
+    shipped Mono3D through save_quantized and the port's reader, served on
+    the card over the 16 scenes (mean AP reported)."""
+    import torch
+    from lsd_tpu_torch.convert import load_camera_params
+    from lsd_tpu_torch.models import quantize as tq
+    from lsd_tpu_torch.models.mono3d import Mono3D, Mono3DConfig
+    from lsd_tpu_torch.models.params_io import load_params
+    from lsd_tpu_torch.training.camera_data import mono3d_ap, mono3d_frames
+    rng = np.random.default_rng(11)
+    report = {}
+    for m, k, n in ((8, 64, 32), (15360, 64, 12)):
+        x = rng.normal(size=(m, k)).astype(np.float32)
+        q = tq._quantize_leaf(rng.normal(size=(k, n)).astype(np.float32))
+        xq = torch.as_tensor(np.clip(np.round(x / (np.abs(x).max() / 127)), -127, 127).astype(np.int8))
+        wq = torch.as_tensor(q["q"])
+        acc_cpu = tq._int_mm(xq, wq)
+        acc_card = tq._int_mm(xq.to(dev), wq.to(dev)).cpu()
+        if not torch.equal(acc_cpu, acc_card):
+            fail(f"quantized_matmul ({m}x{k}@{k}x{n}): int32 accumulators differ card vs CPU")
+        args = (torch.as_tensor(x), wq, torch.as_tensor(q["scale"]))
+        y_cpu = tq.quantized_matmul(*args)
+        y_card = tq.quantized_matmul(*(a.to(dev) for a in args)).cpu()
+        err = float((y_card - y_cpu).abs().max())
+        report[f"{m}x{k}@{k}x{n}"] = dict(acc_equal=True, out_max_abs_err=err,
+                                          ms=time_ms(lambda: tq.quantized_matmul(
+                                              *(a.to(dev) for a in args))))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tq.save_quantized(os.path.join(tmp, "mono3d.int8.msgpack"), tree)
+        size = os.path.getsize(path)
+        qtree = load_params(path)
+    model = Mono3D(Mono3DConfig())
+    load_camera_params(model, qtree)
+    ap = mono3d_ap(mono3d_frames(model.to(dev).eval(), scenes, intrinsic, dev))
+    report.update(int8_file_bytes=size, int8_mean_ap=ap["mean_ap"], int8_per_class=ap["per_class"],
+                  max_quantization_error=max(tq.quantization_error(tree).values()))
+    log(f"quantization: {report}")
+    return report
+
+
+def run_camera(dev, card):
+    """Phase 9: the camera models and their pipeline modules on the card."""
+    import torch
+    from lsd_tpu_torch.convert import load_camera_params
+    from lsd_tpu_torch.detection.mono3d_infer import Mono3DInfer, shipped_mono3d_weights
+    from lsd_tpu_torch.models.mono3d import Mono3D, Mono3DConfig
+    from lsd_tpu_torch.models.params_io import count_params, load_params
+    from lsd_tpu_torch.models.yolo2d import Yolo2D, Yolo2DConfig, nms_2d
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    from lsd_tpu_torch.training import camera_data as cd
+
+    p2p_reduce.launches = 0
+    root = os.path.dirname(os.path.abspath(__file__))
+    m3_path, tl_path = shipped_mono3d_weights(), os.path.join(root, "weights",
+                                                              "yolo2d_trafficlight.msgpack")
+    if m3_path is None or not os.path.exists(tl_path):
+        fail("camera: a shipped camera checkpoint is missing")
+    m3_tree, tl_tree = load_params(m3_path), load_params(tl_path)
+    report = dict(card=card, checkpoints={os.path.basename(p): count_params(t)[1]
+                                          for p, t in ((m3_path, m3_tree), (tl_path, tl_tree))})
+    report["mono3d_fp32_card_vs_cpu"] = check_mono3d_fp32(dev, m3_tree)
+
+    # the evaluations' scenes, on the card
+    m3_scenes = list(cd.SyntheticMono3DDataset(cd.Mono3DSceneConfig(hw=(384, 640)), batch_size=4,
+                                               seed=999).batches(4))
+    K384 = cd.default_intrinsic((384, 640))
+    model = Mono3D(Mono3DConfig())
+    load_camera_params(model, m3_tree)
+    model = model.to(dev).eval()
+    ap = cd.mono3d_ap(cd.mono3d_frames(model, m3_scenes, K384, dev))
+    report["mono3d_accuracy"] = dict(ap, jax_mean_ap=JAX_MONO3D_AP, bar=MONO3D_AP_BAR)
+    log(f"camera: Mono3D on the card, 16 scenes: {ap} (the JAX package's {JAX_MONO3D_AP})")
+    if not abs(ap["mean_ap"] - JAX_MONO3D_AP) <= MONO3D_AP_BAR:
+        fail(f"camera: Mono3D mean AP {ap['mean_ap']} is not within {MONO3D_AP_BAR} of "
+             f"{JAX_MONO3D_AP}")
+    yolo = Yolo2D(Yolo2DConfig(num_classes=4))
+    load_camera_params(yolo, tl_tree)
+    yolo = yolo.to(dev).eval()
+    tl_scenes = list(cd.SyntheticTrafficLightDataset(cd.TrafficLightSceneConfig(), batch_size=4,
+                                                     seed=999).batches(4))
+    yap = cd.yolo2d_ap(cd.yolo2d_frames(yolo, tl_scenes, dev), 4)
+    report["yolo2d_accuracy"] = dict(yap, jax_mean_ap=JAX_YOLO_AP, bar=YOLO_AP_BAR)
+    log(f"camera: Yolo2D bf16 on the card, 16 scenes: {yap} (the JAX package's {JAX_YOLO_AP})")
+    if not abs(yap["mean_ap"] - JAX_YOLO_AP) <= YOLO_AP_BAR:
+        fail(f"camera: Yolo2D mean AP {yap['mean_ap']} is not within {YOLO_AP_BAR} of {JAX_YOLO_AP}")
+    # nms_2d on the card makes no host sync
+    from lsd_tpu_torch.models.mono3d import maps_hwc
+    from lsd_tpu_torch.models.yolo2d import decode_yolo2d
+    with torch.inference_mode():
+        x = torch.as_tensor(tl_scenes[0]["image"][0], device=dev).permute(2, 0, 1)[None]
+        boxes, scores, labels, mask = decode_yolo2d(maps_hwc(yolo(x)), 16, 64)
+        nms_2d(boxes, scores, mask)
+        _, sites = sync_sites(lambda: nms_2d(boxes, scores, mask))
+    if sites:
+        fail(f"camera: nms_2d made host syncs: {sites}")
+    report["nms_2d"] = dict(host_syncs=0, ms=time_ms(lambda: nms_2d(boxes, scores, mask)),
+                            **profile_calls(lambda: nms_2d(boxes, scores, mask), 5))
+    del model, yolo
+
+    # Mono3DInfer on a full-size frame: one packed fetch, no other sync
+    img, K = camera_street_image()
+    infer = Mono3DInfer(device=dev)
+    with torch.inference_mode():
+        prepped, Ks = infer._prep(img, K)
+        infer._predict(prepped, Ks)
+        _, sites = sync_sites(lambda: infer._predict(prepped, Ks))
+    if sites:
+        fail(f"camera: Mono3D's model and decode made host syncs: {sites}")
+    det = infer.detect(img, K)
+    syncs, sync_at = syncs_per_call(lambda: infer.detect(img, K))
+    report["mono3d_infer"] = dict(
+        objects=len(det["camera_objs"]), predict_ms=time_ms(lambda: infer._predict(prepped, Ks)),
+        detect_ms=time_ms(lambda: infer.detect(img, K), n=20), host_syncs_per_detect=syncs,
+        host_sync_sites=sync_at, **profile_calls(lambda: infer.detect(img, K), 5))
+    log(f"camera: Mono3DInfer.detect on a {CAM_HW[1]} x {CAM_HW[0]} frame: "
+        f"{report['mono3d_infer']}")
+    del infer
+
+    # DetectModule with and without the camera branch
+    report["detect_module"] = {}
+    for camera in (True, False):
+        rep = drive_detect_module(dev, camera)
+        report["detect_module"]["with_camera" if camera else "lidar_only"] = rep
+        log(f"camera: DetectModule.process, {N_CAM_DRIVE} frames, camera {camera}: "
+            f"{rep['ms_per_frame_median']:.2f} ms per frame, {rep['launches']:.0f} launches, "
+            f"{rep['host_syncs_per_frame']} host syncs, idle {rep['device_idle_share']:.3f}, "
+            f"fused {rep['fused_kinds']}, tracked {rep['tracked_per_frame']}, spans {rep['spans']}, "
+            f"top kernels {rep['top_kernels']}")
+
+    report["trafficlight"] = run_trafficlight(dev, tl_path)
+    report["quantization"] = check_quantized(dev, m3_tree, m3_scenes, K384)
+    report["p2p_launches"] = p2p_reduce.launches
+    if p2p_reduce.launches != 0:
+        fail(f"camera: p2p_reduce launched {p2p_reduce.launches} times; no SLAM runs here")
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> None:
     try:
         import torch
@@ -1414,6 +1963,10 @@ def main() -> None:
     det_report = run_detection(dev, card)
     p2p_report["launches_detection"] = det_report["p2p_launches"]
 
+    # ---- 9. the camera models ------------------------------------------------
+    cam_report = run_camera(dev, card)
+    p2p_report["launches_camera"] = cam_report["p2p_launches"]
+
     print(json.dumps({"lio_step": lio_report}))
     print(json.dumps({"mapping": mapping_report}))
     print(json.dumps({"lio_step_points": points_report}))
@@ -1421,6 +1974,7 @@ def main() -> None:
     print(json.dumps({"rtkm": rtkm_report}))
     print(json.dumps({"icp_odometry": icp_odom_report}))
     print(json.dumps({"detection": det_report}))
+    print(json.dumps({"camera": cam_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

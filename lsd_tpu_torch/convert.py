@@ -7,7 +7,10 @@ pose graph, the localizer's UKF state and its NDT map.  Both directions go
 through numpy.  The detector has weights: ``detector_params_from_flax``
 turns a flax parameter tree (a shipped checkpoint as
 ``models/params_io.load_params`` reads it) into the ``state_dict`` of the
-port's ``CenterPointDetector``, ``detector_params_to_flax`` the other way.
+port's ``CenterPointDetector``, ``detector_params_to_flax`` the other way;
+``mono3d_params_*`` and ``yolo2d_params_*`` do the same for the camera
+models, whose modules carry the flax tree's names, and ``load_camera_params``
+loads a checkpoint into one after checking every shape.
 
 - ``*_from_numpy(tree, device)`` takes the JAX object after
   ``jax.device_get`` (numpy leaves, fields read by name, so this module
@@ -270,3 +273,64 @@ def detector_params_to_flax(model: CenterPointDetector) -> dict:
             node = node.setdefault(part, {})
         node.update({k: np.ascontiguousarray(v, np.float32) for k, v in leaf.items()})
     return {"params": params}
+
+
+# --------------------------------------------------------------------------
+# camera model weights (Mono3D, Yolo2D).  The port's modules carry the flax
+# tree's names (ConvBlock_k.Conv_0, ResBlock_k.ConvBlock_j, Conv_k), so a
+# leaf moves by name: Conv HWIO -> Conv2d OIHW, norm "scale" -> "weight".
+# What a checkpoint holds (class count, widths) comes from its own shapes.
+
+
+def camera_params_from_flax(tree) -> "dict[str, torch.Tensor]":
+    """The ``state_dict`` (float32, on the CPU) of the port's ``Mono3D`` or
+    ``Yolo2D`` from a flax parameter tree: ``{"params": {...}}`` or the
+    inner dict."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+                continue
+            a = np.asarray(v, np.float32)
+            if k == "kernel":
+                a = a.transpose(3, 2, 0, 1)
+            leaf = {"kernel": "weight", "scale": "weight"}.get(k, k)
+            out[".".join(path + (leaf,))] = torch.tensor(np.ascontiguousarray(a))
+    walk(tree.get("params", tree), ())
+    return out
+
+
+def camera_params_to_flax(model: torch.nn.Module) -> dict:
+    """``{"params": {...}}`` of numpy float32 arrays for the reference's
+    ``Mono3D`` or ``Yolo2D`` with the weights of the port's ``model``."""
+    params: dict = {}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split(".")
+        a = _a(t)
+        if a.ndim == 4:
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            leaf = "scale"
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a, np.float32)
+    return {"params": params}
+
+
+def load_camera_params(model: torch.nn.Module, tree) -> None:
+    """Load a flax tree into ``model``; a checkpoint that does not describe
+    the model (another class count or width, a missing or extra leaf)
+    raises ``ValueError`` naming the leaf and both shapes."""
+    state = camera_params_from_flax(tree)
+    want = model.state_dict()
+    for name in sorted(set(state) | set(want)):
+        got_shape = tuple(state[name].shape) if name in state else None
+        want_shape = tuple(want[name].shape) if name in want else None
+        if got_shape != want_shape:
+            raise ValueError(
+                f"the checkpoint does not fit {type(model).__name__}({model.cfg}): "
+                f"{name} is {got_shape} in the checkpoint and {want_shape} in the model")
+    model.load_state_dict(state)

@@ -1,6 +1,7 @@
-"""Read the reference's flax-msgpack checkpoints (``weights/*.msgpack``)
-without flax or msgpack (counterpart of ``lsd_tpu/models/params_io.py:22-26``
-and ``lsd_tpu/models/quantize.py:44-45, 102-112``).
+"""Read and write the reference's flax-msgpack checkpoints
+(``weights/*.msgpack``) without flax or msgpack (counterpart of
+``lsd_tpu/models/params_io.py`` and ``lsd_tpu/models/quantize.py:44-45,
+102-112``).
 
 A checkpoint is a msgpack map of maps whose leaves are numpy arrays packed
 as msgpack extension type 1: the msgpack triple ``(shape, dtype name, raw C
@@ -13,10 +14,15 @@ in float32.
 
 ``load_params`` returns the tree as nested dicts of numpy arrays;
 ``convert.detector_params_from_flax`` turns a detector's tree into a
-``state_dict``.
+``state_dict``.  ``save_params`` writes such a tree as flax's ``to_bytes``
+writes it, byte for byte (``packb`` packs as msgpack-python does with
+``use_bin_type`` and the smallest form of each number, string and
+container; arrays over ``MAX_CHUNK_BYTES`` are chunked as flax chunks
+them).
 """
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Tuple
 
@@ -24,6 +30,9 @@ import numpy as np
 
 MAGIC = b"LSDQ8001"
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
+# flax splits arrays larger than this into chunks (msgpack's objects stop at
+# 2**31 - 1 bytes)
+MAX_CHUNK_BYTES = 2 ** 30
 
 
 class _Reader:
@@ -154,3 +163,121 @@ def count_params(tree: Any) -> Tuple[int, int]:
         counts = [count_params(v) for v in tree.values()]
         return sum(c[0] for c in counts), sum(c[1] for c in counts)
     return (1, int(np.size(tree))) if isinstance(tree, np.ndarray) else (0, 0)
+
+
+def _sized(out: list, n: int, fix: int, fix_max: int, forms) -> None:
+    """A header: one byte ``fix | n`` while n < fix_max, else the first of
+    ``forms`` ((tag, struct format, limit)) whose limit holds n."""
+    if n < fix_max:
+        out.append(struct.pack(">B", fix | n))
+        return
+    for tag, fmt, limit in forms:
+        if n < limit:
+            out.append(struct.pack(">B" + fmt, tag, n))
+            return
+    raise ValueError(f"{n} is too long for msgpack")
+
+
+_U8, _U16, _U32 = 1 << 8, 1 << 16, 1 << 32
+
+
+def _pack_int(out: list, n: int) -> None:
+    if 0 <= n < 0x80 or -32 <= n < 0:
+        out.append(struct.pack(">b" if n < 0 else ">B", n))
+        return
+    forms = ((0xCC, "B", _U8), (0xCD, "H", _U16), (0xCE, "I", _U32), (0xCF, "Q", 1 << 64)) \
+        if n >= 0 else ((0xD0, "b", 1 << 7), (0xD1, "h", 1 << 15), (0xD2, "i", 1 << 31),
+                        (0xD3, "q", 1 << 63))
+    for tag, fmt, limit in forms:
+        if -limit <= n < limit:
+            out.append(struct.pack(">B" + fmt, tag, n))
+            return
+    raise ValueError(f"{n} does not fit in 64 bits")
+
+
+def _ext(out: list, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(struct.pack(">Bb", fixed[len(data)], code))
+    else:
+        _sized(out, len(data), 0, 0, ((0xC7, "B", _U8), (0xC8, "H", _U16), (0xC9, "I", _U32)))
+        out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def _array_bytes(a: np.ndarray) -> bytes:
+    return packb((list(a.shape), a.dtype.name, a.tobytes("C")))
+
+
+def _pack(out: list, obj: Any) -> None:
+    if obj is None or isinstance(obj, bool):
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[obj])
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        _sized(out, len(raw), 0xA0, 32, ((0xD9, "B", _U8), (0xDA, "H", _U16), (0xDB, "I", _U32)))
+        out.append(raw)
+    elif isinstance(obj, (bytes, bytearray)):
+        _sized(out, len(obj), 0, 0, ((0xC4, "B", _U8), (0xC5, "H", _U16), (0xC6, "I", _U32)))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        _sized(out, len(obj), 0x90, 16, ((0xDC, "H", _U16), (0xDD, "I", _U32)))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _sized(out, len(obj), 0x80, 16, ((0xDE, "H", _U16), (0xDF, "I", _U32)))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("an array of Python objects has no msgpack form")
+        _ext(out, EXT_NDARRAY, _array_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _ext(out, EXT_NPSCALAR, _array_bytes(np.asarray(obj)))
+    elif isinstance(obj, complex):
+        _ext(out, EXT_COMPLEX, packb((obj.real, obj.imag)))
+    else:
+        raise TypeError(f"{type(obj).__name__} has no msgpack form")
+
+
+def packb(obj: Any) -> bytes:
+    """``obj`` (dicts, lists, tuples, str, bytes, numbers, numpy arrays and
+    scalars) as msgpack bytes; arrays and numpy scalars as flax's extension
+    types."""
+    out: list = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def _chunk(tree: Any) -> Any:
+    """``tree`` with its maps in key order (flax copies a tree through
+    ``jax.tree_util``, which sorts them) and its large arrays chunked."""
+    if isinstance(tree, dict):
+        return {k: _chunk(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_BYTES:
+        flat = tree.reshape(-1)
+        step = max(1, MAX_CHUNK_BYTES // tree.dtype.itemsize)
+        chunks = [flat[i:i + step] for i in range(0, flat.size, step)]
+        return {"__msgpack_chunked_array__": True,
+                "shape": {str(i): n for i, n in enumerate(tree.shape)},
+                "chunks": {str(i): c for i, c in enumerate(chunks)}}
+    return tree
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """The bytes ``flax.serialization.msgpack_serialize`` gives for ``tree``
+    (nested dicts with numpy leaves)."""
+    return packb(_chunk(tree))
+
+
+def save_params(path: str, params: Any) -> str:
+    """Write ``params`` (nested dicts of numpy arrays, a tree ``load_params``
+    returns or ``convert.*_params_to_flax`` makes) as a flax checkpoint."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(params))
+    return path

@@ -21,19 +21,17 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-try:
-    import cv2
-    HAS_CV2 = True
-except Exception:  # pragma: no cover
-    cv2 = None
-    HAS_CV2 = False
-
 
 class VisualRelocDB:
     def __init__(self, n_features: int = 500, ratio: float = 0.75,
                  bow_threshold: int = 50):
-        if not HAS_CV2:
-            raise RuntimeError("cv2 unavailable; visual reloc disabled")
+        # OpenCV is imported here, not with the module: importing the port
+        # must not need it
+        try:
+            import cv2
+        except ImportError as exc:
+            raise RuntimeError("cv2 unavailable; visual reloc disabled") from exc
+        self.cv2 = cv2
         self.orb = cv2.ORB_create(nfeatures=n_features)
         self.matcher = cv2.BFMatcher(cv2.NORM_HAMMING)
         self.ratio = ratio
@@ -43,10 +41,10 @@ class VisualRelocDB:
 
     def _describe(self, image) -> Optional[np.ndarray]:
         if isinstance(image, (bytes, bytearray)):
-            image = cv2.imdecode(np.frombuffer(image, np.uint8),
-                                 cv2.IMREAD_GRAYSCALE)
+            image = self.cv2.imdecode(np.frombuffer(image, np.uint8),
+                                      self.cv2.IMREAD_GRAYSCALE)
         elif image.ndim == 3:
-            image = cv2.cvtColor(image, cv2.COLOR_BGR2GRAY)
+            image = self.cv2.cvtColor(image, self.cv2.COLOR_BGR2GRAY)
         if image is None:
             return None
         _kp, desc = self.orb.detectAndCompute(image, None)

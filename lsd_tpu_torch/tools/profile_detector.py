@@ -46,7 +46,7 @@ from ..detection.tracker import Tracker3D, TrackerConfig
 from ..models.detector import DetectorConfig
 from ..runtime.modules import build_detector_predict_fn
 from ..training.data import SyntheticDetectionDataset, SyntheticSceneConfig
-from ..utils.device import resolve_device
+from ..utils.device import fetch, resolve_device
 from .profile_lio import _card, sync_sites, trace_report
 
 SPANS = ("detect/",)
@@ -120,13 +120,7 @@ def detect_frame(predict, det_cfg: DetectorConfig, accumulator: FrameAccumulator
     pts, msk = accumulator.push(points, mask, motion=motion)
     boxes, scores, labels, keep, seg = predict(pts, msk)
     with record_function("detect/fetch"):
-        k = boxes.shape[0]
-        packed = torch.cat([boxes.reshape(-1), scores, labels.float(), keep.float(),
-                            seg.reshape(-1)]).cpu().numpy()
-    boxes_h = packed[:7 * k].reshape(k, 7)
-    scores_h, labels_h = packed[7 * k:8 * k], packed[8 * k:9 * k].astype(np.int32)
-    keep_h = packed[9 * k:10 * k] > 0.5
-    seg_h = packed[10 * k:].reshape(seg.shape)
+        boxes_h, scores_h, labels_h, keep_h, seg_h = fetch(boxes, scores, labels, keep, seg)
     freespace = seg_to_freespace(seg_h, det_cfg.pc_range, det_cfg.voxel_size[0])
     with record_function("detect/tracker"):
         out = tracker.update(boxes_h[keep_h], scores_h[keep_h], labels_h[keep_h], dt=dt,

@@ -42,3 +42,16 @@ def to_device(a: Union[np.ndarray, torch.Tensor, list, tuple, float, int, bool],
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def fetch(*tensors: torch.Tensor) -> list:
+    """The tensors on the host through one packed copy (one host sync), as
+    numpy arrays of their own dtypes; integers below 2**24 and booleans
+    pass through the float32 pack exactly."""
+    packed = torch.cat([t.reshape(-1).float() for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        part = packed[at:at + t.numel()].reshape(t.shape)
+        out.append(part.astype(str(t.dtype).removeprefix("torch.")))
+        at += t.numel()
+    return out

@@ -36,6 +36,17 @@ value and NMS keeps the same boxes, the float32 network with TF32 off
 agrees within 1e-3 of each map's largest magnitude (cuDNN picks other
 convolution algorithms), the tracker keeps the same tracks, and
 ``build_detector_predict_fn``'s function makes no host sync.
+
+The camera path: ``resize_linear`` gives equal bytes (integer arithmetic);
+the float32 ``Mono3D`` with TF32 off agrees within 1e-4 of each map's
+largest magnitude (a control with cuDNN's TF32 on must not) and decodes
+the same valid boxes; the bf16 ``Yolo2D``
+within 3e-2 (the CPU tests' bar against JAX; cuDNN accumulates in another
+order before each bf16 rounding); ``nms_2d`` keeps the same boxes and,
+like the model and decode inside ``Mono3DInfer``, makes no host sync
+(``Mono3DInfer.detect`` makes exactly one, its packed fetch);
+``quantized_matmul`` through ``torch._int_mm`` gives the CPU's int32
+accumulators, with M, K and N padded to what that call takes.
 """
 import numpy as np
 import pytest
@@ -660,3 +671,104 @@ def test_predict_on_card_makes_no_host_sync(cuda):
     assert not sites, sites
     assert all(t.device.type == "cuda" for t in out)
     assert out[0].shape == (128, 7) and int(out[3].sum()) > 3
+
+
+def test_resize_on_card_equals_cpu(cuda):
+    from lsd_tpu_torch.utils.image import resize_linear
+    rng = np.random.default_rng(0)
+    for src, dst in (((1080, 1920), (384, 640)), ((1080, 1920), (256, 320)), ((96, 160), (384, 640))):
+        img = torch.as_tensor(rng.integers(0, 256, (*src, 3), dtype=np.uint8))
+        assert torch.equal(resize_linear(img.to(cuda), dst).cpu(), resize_linear(img, dst))
+
+
+def _shipped(name):
+    from lsd_tpu_torch.models.params_io import load_params
+    return load_params(f"weights/{name}.msgpack")
+
+
+def test_mono3d_float32_on_card_matches_cpu(cuda):
+    from lsd_tpu_torch.convert import load_camera_params
+    from lsd_tpu_torch.models.mono3d import Mono3D, Mono3DConfig, decode_mono3d, maps_hwc
+    model = Mono3D(Mono3DConfig(image_hw=(192, 320)))
+    load_camera_params(model, _shipped("mono3d"))
+    img = torch.as_tensor(np.random.default_rng(1).random((1, 3, 192, 320)).astype(np.float32))
+    K = torch.tensor([[280.0, 0, 160], [0, 280.0, 96], [0, 0, 1]])
+    out = []
+    with torch.no_grad():
+        for d, tf32 in (("cpu", False), (cuda, False), (cuda, True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                maps = maps_hwc(model.to(d).eval()(img.to(d)))
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+            out.append(({k: v.cpu() for k, v in maps.items()},
+                        [a.cpu() for a in decode_mono3d(maps, K.to(d), 64, 4)]))
+    (ref_maps, ref_dec), (maps, dec), (tf32_maps, _) = out
+
+    def worst(got):
+        return max(float((got[k] - v).abs().max() / v.abs().max()) for k, v in ref_maps.items())
+    # TF32 off meets the CPU parity bar; the control with TF32 on breaks it
+    assert worst(maps) <= 1e-4 < worst(tf32_maps)
+    valid = ref_dec[3]
+    assert torch.equal(dec[3], valid) and torch.equal(dec[2][valid], ref_dec[2][valid])
+    torch.testing.assert_close(dec[0][valid], ref_dec[0][valid], rtol=1e-3, atol=1e-3)
+
+
+def test_yolo2d_bf16_on_card_matches_cpu_and_nms_makes_no_sync(cuda):
+    from lsd_tpu_torch.convert import load_camera_params
+    from lsd_tpu_torch.models.mono3d import maps_hwc
+    from lsd_tpu_torch.models.yolo2d import Yolo2D, Yolo2DConfig, decode_yolo2d, nms_2d
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    model = Yolo2D(Yolo2DConfig(num_classes=4))
+    load_camera_params(model, _shipped("yolo2d_trafficlight"))
+    img = torch.as_tensor(np.random.default_rng(2).random((1, 3, 256, 320)).astype(np.float32))
+    with torch.no_grad():
+        ref = maps_hwc(model.eval()(img))
+        got = maps_hwc(model.to(cuda)(img.to(cuda)))
+    for k, v in ref.items():
+        assert float((got[k].cpu() - v).abs().max() / v.abs().max()) <= 3e-2, k
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(0, 200, (64, 2))
+    boxes = torch.as_tensor(np.c_[xy, xy + rng.uniform(5, 60, (64, 2))], dtype=torch.float32)
+    scores = torch.as_tensor(np.round(rng.uniform(0, 1, 64), 2), dtype=torch.float32)
+    mask = torch.as_tensor(rng.uniform(size=64) > 0.2)
+    want = nms_2d(boxes, scores, mask)
+    args = (boxes.to(cuda), scores.to(cuda), mask.to(cuda))
+    nms_2d(*args)
+    keep, sites = sync_sites(lambda: nms_2d(*args))
+    assert not sites, sites
+    assert torch.equal(keep.cpu(), want) and 3 < int(want.sum()) < int(mask.sum())
+    _, sites = sync_sites(lambda: decode_yolo2d(got, 16, 64))
+    assert not sites, sites
+
+
+def test_mono3d_infer_fetches_once(cuda):
+    from lsd_tpu_torch.detection.mono3d_infer import Mono3DInfer
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    infer = Mono3DInfer()
+    img = np.random.default_rng(4).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    K = np.asarray([[1000.0, 0, 960], [0, 1000.0, 540], [0, 0, 1]])
+    infer.detect(img, K)
+    with torch.inference_mode():
+        x, Ks = infer._prep(img, K)
+        _, sites = sync_sites(lambda: infer._predict(x, Ks))
+    assert not sites, sites
+    det, sites = sync_sites(lambda: infer.detect(img, K))
+    assert sum(sites.values()) == 1, sites
+    assert det["heat"].shape == (96, 160, 4) and np.isfinite(det["heat"]).all()
+    ref = Mono3DInfer(device="cpu").detect(img, K)
+    assert [o["label"] for o in det["camera_objs"]] == [o["label"] for o in ref["camera_objs"]]
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 64, 32), (17, 64, 32), (17, 16, 8), (24, 64, 32),
+                                   (300, 33, 12), (15360, 64, 12)])
+def test_quantized_matmul_int_mm_on_card_equals_cpu(cuda, m, k, n):
+    from lsd_tpu_torch.models import quantize as tq
+    rng = np.random.default_rng(m)
+    a = torch.as_tensor(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    b = torch.as_tensor(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    assert torch.equal(tq._int_mm(a.to(cuda), b.to(cuda)).cpu(), tq._int_mm(a, b))
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32))
+    scale = torch.as_tensor(rng.uniform(0.01, 0.1, n).astype(np.float32))
+    torch.testing.assert_close(tq.quantized_matmul(x.to(cuda), b.to(cuda), scale.to(cuda)).cpu(),
+                               tq.quantized_matmul(x, b, scale), rtol=0, atol=0)

@@ -199,12 +199,20 @@ def test_import_leaves_jax_out():
             "lsd_tpu_torch.ops.iou3d", "lsd_tpu_torch.models.detector",
             "lsd_tpu_torch.models.params_io", "lsd_tpu_torch.detection.tracker",
             "lsd_tpu_torch.detection.eval", "lsd_tpu_torch.runtime.modules",
-            "lsd_tpu_torch.training.data", "lsd_tpu_torch.tools.profile_detector"} <= set(mods)
+            "lsd_tpu_torch.training.data", "lsd_tpu_torch.tools.profile_detector",
+            "lsd_tpu_torch.models.mono3d", "lsd_tpu_torch.models.yolo2d",
+            "lsd_tpu_torch.models.quantize", "lsd_tpu_torch.detection.mono3d_infer",
+            "lsd_tpu_torch.detection.camera_fusion", "lsd_tpu_torch.detection.trafficlight",
+            "lsd_tpu_torch.calibration.service", "lsd_tpu_torch.training.camera_data",
+            "lsd_tpu_torch.utils.log", "lsd_tpu_torch.utils.period", "lsd_tpu_torch.utils.image",
+            "lsd_tpu_torch.runtime.interface", "lsd_tpu_torch.runtime.pipeline",
+            "lsd_tpu_torch.runtime.config", "lsd_tpu_torch.runtime.trafficlight_module",
+            "lsd_tpu_torch.io.frame"} <= set(mods)
     assert len(mods) > 50
     pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
     code = ("import sys; import lsd_tpu_torch, " + ", ".join(pkgs + mods) + "; "
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'msgpack', 'lsd_tpu') "
-            "or m.startswith(('jax.', 'flax.', 'msgpack.', 'lsd_tpu.'))]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'msgpack', 'lsd_tpu', 'cv2', "
+            "'yaml') or m.startswith(('jax.', 'flax.', 'msgpack.', 'lsd_tpu.', 'cv2.', 'yaml.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
