@@ -116,6 +116,33 @@ Phases, in order; any failure exits non-zero:
    through ``save_quantized`` and back, served on the card (mean AP
    reported).  Reported: ms per call (CUDA events), launches, host syncs,
    the device's idle share, and spans ``camera/*`` of the module's frame.
+10. The runtime's default pipeline, through ``Perception`` on the card
+   (``runtime/perception.py``), each sub-phase from a recording written with
+   the port's ``FrameRecorder`` and every output frame recorded by the sink:
+   (a) mapping: phase 4's 95 scans, each frame with an RTK-fixed INS fix
+   from the truth (status 42, velocity, heading) and absolute IMU stamps,
+   ``slam.mode mapping`` at 0.4 m with a keyframe every 1.5 m / 0.3 rad,
+   ``async_graph`` and ``async_fetch`` at their defaults (on), the LIO
+   seeded at the simulator's start; saved through ``slam.save_mapping``.
+   Checks: all 95 scans integrated, no module restart, the status never
+   Error, the graph worker raised nothing, more than 15 keyframes, at
+   least 1 loop, trajectory RMSE < 0.3 m, GPS priors and ``origin_lla``,
+   ``graph.g2o`` written and the map loading, the p2p kernel launched
+   ``max_iters`` times per scan, a ``slam.odometry`` message received on the
+   bus.  (b) localization on that map: 70 scans of phase 6's drive from
+   rest, with fixes, the hint through ``slam.set_init_pose``; on the
+   recorded poses, phase 6's bars (RMSE < 1.0 m after the first 3, the last
+   four errors within 0.1 m), no restart, 3 launches per side-LIO scan.
+   (c) detection: 20 frames of phase 8's drive through [Source, Detect,
+   Sink] with the 0.2 m checkpoint and the UDP sink sending to a receiver
+   here: every datagram parses back to the objects the sink recorded for
+   its frame, the 20 frames out in order, no launch.  Reported for each:
+   ms per frame from the first frame in to the last one done before the
+   profiled stretch (the frames after it wait while the trace is read),
+   beside phases 4, 6 and 8's direct calls in the same run; the stage's ms
+   per frame; launches; the device's idle share over PIPE_PROFILED profiled
+   frames; and the host ms of reading a frame (pickle and normalization)
+   and of ``frame_from_dict``, wall and thread CPU.
 
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
@@ -123,6 +150,7 @@ prints one JSON line per path, the card's name and power limit, one
 {...}}``.  It has no CPU path: without a card, or without the
 ``lsd_tpu_torch`` package beside it, it fails.
 """
+import faulthandler
 import json
 import os
 import subprocess
@@ -132,6 +160,14 @@ import threading
 import time
 
 import numpy as np
+
+# The profiler detaches CUPTI from the process at the end of every trace and
+# attaches it again at the next.  Here traces follow a CUDA-graph capture
+# (phase 2), and phase 10 ends its traces while the pipeline's threads launch
+# kernels: a teardown or re-attach under either can abort the process
+# (torch.profiler turns the teardown off itself for the CUDA graphs that it
+# knows of, those of torch.compile).  CUPTI stays attached.
+os.environ["TEARDOWN_CUPTI"] = "0"
 
 N_WARM, N_BENCH = 5, 100
 CAP, IMU_CAP = 2 ** 15, 16
@@ -183,6 +219,14 @@ CAM_HW = (1080, 1920)                # the camera frames' size
 CAM_HEIGHT_M = 1.5                   # the drive's camera above the ground
 N_CAM_DRIVE, CAM_MIN_TRACKED_FRAMES = 20, 15
 N_TL_FRAMES, TL_MIN_FOUND = 20, 16
+# phase 10: the pipeline's localization and detection drives, the stretch of
+# frames under the profiler and where it starts (the frames before it are the
+# timed window: see pipeline_report), and how long a drive may take
+N_PIPE_LOC, N_PIPE_DET = 70, 20
+PIPE_PROFILED = 5
+PIPE_PROFILE_FROM = {"mapping": 80, "localization": 60, "detection": 13}
+PIPE_SPANS = ("lio_step/", "mapper/", "localizer/", "detect/")
+PIPE_TIMEOUT_S = 300
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -1855,7 +1899,434 @@ def run_camera(dev, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the runtime's default pipeline
+
+
+def pipeline_perception(dev, rec_dir, out_dir, pipeline, edit):
+    """The port's ``Perception`` on ``dev`` over the recording ``rec_dir``,
+    recording every output frame under ``out_dir``; ``edit(cfg)`` sets the
+    sections the sub-phase needs.  The config goes through ``set_config``
+    (and its network validation); returns the facade after ``setup()``."""
+    from lsd_tpu_torch.runtime import clear_interfaces
+    from lsd_tpu_torch.runtime.perception import Perception
+    clear_interfaces()
+    p = Perception(device=dev)
+    cfg = p.get_config()
+    cfg["pipeline"] = pipeline
+    cfg["input"].update(mode="offline", data_path=rec_dir)
+    cfg["system"]["record"].update(use=True, path=out_dir)
+    edit(cfg)
+    verdict = p.set_config(cfg)
+    if verdict not in ("Success", "Reset", "Reboot"):
+        fail(f"pipeline: set_config refused the config: {verdict}")
+    p.setup()
+    return p
+
+
+class Stamps:
+    """Replaces ``owner.name`` (a module's function, a class's method or an
+    object's) by a wrapper that keeps, without a synchronize, the host
+    clock at each return, the call's host ms (wall, and the CPU time of
+    its thread: the difference is time spent waiting, for the GIL among
+    others) and its result (with ``keep``; else whether it was truthy),
+    until ``restore()``."""
+
+    def __init__(self, owner, name, keep=False):
+        self.owner, self.name, self.keep = owner, name, keep
+        self.fn = getattr(owner, name)
+        self.own = isinstance(owner, type) or name in vars(owner)
+        self.times, self.results, self.ms, self.cpu_ms = [], [], [], []
+        fn = self.fn
+
+        def wrapped(*args, **kwargs):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            out = fn(*args, **kwargs)
+            t1, c1 = time.perf_counter(), time.thread_time()
+            self.times.append(t1)
+            self.results.append(out if self.keep else bool(out))
+            self.ms.append((t1 - t0) * 1e3)
+            self.cpu_ms.append((c1 - c0) * 1e3)
+            return out
+        setattr(owner, name, wrapped)
+
+    def first_true(self):
+        """The host clock at the first call whose result was truthy."""
+        return next(t for t, out in zip(self.times, self.results) if out)
+
+    def restore(self):
+        if self.own:
+            setattr(self.owner, self.name, self.fn)
+        else:
+            delattr(self.owner, self.name)
+
+
+def drive_pipeline(where, p, count, n):
+    """Start ``p`` and wait until ``count()`` reaches ``n``, watching the
+    pipeline's status; the device is profiled while count() goes from
+    ``PIPE_PROFILE_FROM[where]`` on for PIPE_PROFILED frames.  Returns (the
+    statuses seen, the profiled stretch's trace report)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lsd_tpu_torch.tools.profile_lio import trace_report
+    statuses, prof, rep = set(), None, None
+    profile_from = PIPE_PROFILE_FROM[where]
+    deadline = time.perf_counter() + PIPE_TIMEOUT_S
+    p.start()
+    while True:
+        c = count()
+        if c >= n:
+            break
+        st = p.get_status()
+        statuses.add(st["status"])
+        if st["status"] == "Error" or time.perf_counter() > deadline:
+            fail(f"pipeline ({where}): {c} of {n} frames done; status {st}")
+        if prof is None and rep is None and c >= profile_from:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            c0, t0 = c, time.perf_counter()
+        elif prof is not None and c >= c0 + PIPE_PROFILED:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.__exit__(None, None, None)
+            rep = trace_report(prof, c - c0, wall, PIPE_SPANS)
+            prof = None
+        time.sleep(0.002)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    statuses.add(p.get_status()["status"])
+    return statuses, rep
+
+
+def recorded_frames(out_dir):
+    """The frame dicts the pipeline's FrameSinkModule wrote, in order, read
+    back with the port's player."""
+    from lsd_tpu_torch.io.player import FramePlayer
+    dirs = sorted(os.path.join(out_dir, d) for d in os.listdir(out_dir))
+    player = FramePlayer(dirs)
+    return [player.read_dict(k) for k in range(len(player))]
+
+
+def check_modules(where, p, statuses):
+    """No module restarted, the status was never Error, every module's
+    thread is alive."""
+    st = p.get_status()
+    if st["restarts"] or "Error" in statuses:
+        fail(f"pipeline ({where}): restarts {st['restarts']}, statuses {sorted(statuses)}")
+    dead = [name for name, m in st["modules"].items() if not m["alive"]]
+    if dead:
+        fail(f"pipeline ({where}): the threads of {dead} are not alive")
+    return st
+
+
+def pipeline_report(where, card, n, first, done, stage, read, conv, direct, launches,
+                    stretch, extra):
+    """The numbers every sub-phase reports.  The profiler's trace is turned
+    into events in the main thread while the pipeline runs, which starves
+    the pipeline's threads of the GIL for seconds, so the timed window is
+    the frames before the profiled stretch: ms per frame from the first
+    frame in to the last of them done; the stage's ``process`` per frame
+    (median over them, and the first frame, which warms the path up);
+    reading a frame (``FramePlayer.read_dict``) and ``frame_from_dict``,
+    mean wall and thread CPU ms over the timed window (a mean: the thread
+    clock may tick in 10 ms steps).  Then the profiled stretch's device
+    numbers, and the whole drive's ms per frame, stretch included."""
+    k = PIPE_PROFILE_FROM[where]
+    t_first = first.first_true()
+    mean = lambda a: float(np.mean(a[:k]))
+    report = dict(card=card, frames=n, timed_frames=k,
+                  ms_per_frame=(done.times[k - 1] - t_first) / k * 1e3,
+                  stage_ms_median=float(np.median(stage.ms[1:k])), stage_ms_first=stage.ms[0],
+                  direct_ms_per_scan=direct, p2p_launches=launches,
+                  get_data_host_ms_per_frame=mean(read.ms) + mean(conv.ms),
+                  read_dict_host_ms=mean(read.ms), read_dict_cpu_ms=mean(read.cpu_ms),
+                  frame_from_dict_host_ms=mean(conv.ms), frame_from_dict_cpu_ms=mean(conv.cpu_ms),
+                  ms_per_frame_all_frames=(done.times[n - 1] - t_first) / n * 1e3,
+                  profiled_frames=PIPE_PROFILED, **extra)
+    if stretch is not None:
+        report.update(device_idle_share=stretch["device_idle_share"],
+                      device_busy_ms_per_frame=stretch["device_busy_ms_per_scan"],
+                      wall_ms_per_frame_traced=stretch["wall_ms_per_scan"],
+                      launches_per_frame=stretch["kernel_launches_per_scan"],
+                      top_kernels=stretch["kernels"][:6])
+    log(f"pipeline ({where}) on {card}: {report}")
+    return report
+
+
+def run_pipeline_mapping(dev, card, root, sim, data, nav0, direct):
+    """Phase 10a: phase 4's scans, with RTK fixes from the truth, replayed
+    through the default pipeline in mapping mode; returns the report and the
+    saved map's directory."""
+    from lsd_tpu_torch.comms import MessageBus
+    from lsd_tpu_torch.comms.messages import decode_typed
+    from lsd_tpu_torch.io.frame import IMU_CAPACITY
+    from lsd_tpu_torch.io.player import FramePlayer
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.runtime import call_interface, modules
+    from lsd_tpu_torch.slam.lio import lio_init
+    from lsd_tpu_torch.slam.map_io import load_map
+    from lsd_tpu_torch.tools.recording import write_recording
+
+    n = len(data)
+    t0 = time.perf_counter()
+    rec_dir = write_recording(os.path.join(root, "rec_mapping"), sim, data, with_fixes=True)
+    log(f"pipeline (mapping): wrote {n} frames with fixes in {time.perf_counter() - t0:.1f} s")
+
+    def edit(cfg):
+        cfg["slam"].update(mode="mapping", resolution=0.4, key_frames_interval=[1.5, 0.3])
+    out_dir = os.path.join(root, "out_mapping")
+    p = pipeline_perception(dev, rec_dir, out_dir, [["Source", "SLAM", "Sink"]], edit)
+    slam = p.module_manager.modules["SLAM"]
+    eng = slam.engine
+    if not (eng.cfg.async_graph and eng.cfg.async_fetch):
+        fail("pipeline (mapping): SlamModule no longer runs async_graph and async_fetch by default")
+    # the simulator's start, as the reference's own replay test seeds it
+    eng.lio_state = lio_init(eng.cfg.lio, nav0)
+    odometry = []
+    sub = MessageBus.core().subscribe(
+        lambda ch, payload: odometry.append(payload) if ch == "slam.odometry" else None)
+    read = Stamps(FramePlayer, "read_dict")
+    conv = Stamps(modules, "frame_from_dict")
+    first = Stamps(p.module_manager.modules["Source"], "get_data")
+    done = Stamps(eng, "_complete_scan")
+    stage = Stamps(slam, "process")
+    p2p_reduce.launches = 0
+    try:
+        statuses, stretch = drive_pipeline("mapping", p, lambda: len(eng.odometry), n)
+        launches = p2p_reduce.launches
+        eng.flush()                     # the graph worker's last jobs
+        if call_interface("slam.save_mapping", os.path.join(root, "maps"), "pipeline") != "ok":
+            fail("pipeline (mapping): slam.save_mapping did not answer ok")
+        slam.editor._save_thread.join(timeout=300)
+        check_modules("mapping", p, statuses)
+    finally:
+        for s in (read, conv, first, done, stage):
+            s.restore()
+        sub.close()
+        p.release()
+    map_dir = os.path.join(root, "maps", "pipeline")
+    gt = np.stack([d[5] for d in data])
+    traj = eng.trajectory()
+    stamps = [s for s, _ in eng.odometry]
+    if traj.shape != (n, 4, 4) or stamps != [1_000_000 + k * 100_000 for k in range(n)]:
+        fail(f"pipeline (mapping): {traj.shape[0]} scans integrated of {n}, stamps {stamps[:3]}...")
+    if eng.worker_errors:
+        fail(f"pipeline (mapping): the graph worker's jobs raised {eng.worker_errors!r}")
+    rmse = float(np.sqrt(np.mean(np.sum((traj[:, :3, 3] - gt[:, :3, 3]) ** 2, axis=1))))
+    n_kf = len(eng.store)
+    if not (n_kf > 15 and len(eng.loops) >= 1 and rmse < MAPPING_RMSE_LIMIT_M):
+        fail(f"pipeline (mapping): {n_kf} keyframes, {len(eng.loops)} loops ({eng.loop_stats}), "
+             f"RMSE {rmse} m; expected more than 15, at least 1, below {MAPPING_RMSE_LIMIT_M}")
+    if not eng.graph.gps or eng.origin_lla is None:
+        fail(f"pipeline (mapping): {len(eng.graph.gps)} GPS priors, origin {eng.origin_lla}")
+    if not os.path.exists(os.path.join(map_dir, "graph", "graph.g2o")):
+        fail("pipeline (mapping): slam.save_mapping wrote no graph.g2o")
+    loaded = load_map(map_dir)
+    if len(loaded["poses"]) != n_kf:
+        fail(f"pipeline (mapping): the saved map loads {len(loaded['poses'])} poses of {n_kf}")
+    if launches != eng.cfg.lio.max_iters * n:
+        fail(f"pipeline (mapping): p2p_reduce launched {launches} times over {n} scans, "
+             f"expected max_iters x scans = {eng.cfg.lio.max_iters * n}")
+    if not odometry or decode_typed(odometry[-1])[0] != "Odometry":
+        fail(f"pipeline (mapping): the bus subscriber received {len(odometry)} slam.odometry "
+             "messages")
+    frames = recorded_frames(out_dir)
+    recorded = {d["frame_start_timestamp"] for d in frames if d.get("slam_pose") is not None}
+    if len(recorded) != n:
+        fail(f"pipeline (mapping): the sink recorded {len(recorded)} of {n} frames with a pose")
+    report = pipeline_report(
+        "mapping", card, n, first, done, stage, read, conv, direct, launches, stretch,
+        dict(imu_rows_per_frame=int(data[0][4].sum()), imu_slots_per_lio_step=IMU_CAPACITY,
+             keyframes=n_kf, loops=len(eng.loops), loop_stats=eng.loop_stats, rmse_m=rmse,
+             gps_priors=len(eng.graph.gps), orientation_priors=len(eng.graph.orient),
+             origin_lla=[float(v) for v in eng.origin_lla], bus_odometry_messages=len(odometry),
+             sink_frames=len(frames), max_iters=eng.cfg.lio.max_iters,
+             ds_capacity=eng.cfg.lio.ds_capacity))
+    return report, map_dir
+
+
+def run_pipeline_localization(dev, card, root, sim, map_dir, direct):
+    """Phase 10b: 70 scans of ``localization_drive``, from rest, with fixes,
+    through the default pipeline in localization mode on 10a's map."""
+    from lsd_tpu_torch.io.frame import IMU_CAPACITY
+    from lsd_tpu_torch.io.player import FramePlayer
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.runtime import call_interface, modules
+    from lsd_tpu_torch.tools.profile_lio import localization_drive
+    from lsd_tpu_torch.tools.recording import write_recording
+
+    n = N_PIPE_LOC
+    drive, scans, hint = localization_drive(sim, n, CAP)
+    rec_dir = write_recording(os.path.join(root, "rec_localization"), drive, scans,
+                              t_start=LOC_T_START, first_us=20_000_000, with_fixes=True,
+                              p0=sim.pose(0.0)[1])
+
+    def edit(cfg):
+        cfg["slam"].update(mode="localization", map_path=map_dir)
+    out_dir = os.path.join(root, "out_localization")
+    p = pipeline_perception(dev, rec_dir, out_dir, [["Source", "SLAM", "Sink"]], edit)
+    slam = p.module_manager.modules["SLAM"]
+    eng = slam.engine
+    call_interface("slam.set_init_pose", hint.tolist())
+    read = Stamps(FramePlayer, "read_dict")
+    conv = Stamps(modules, "frame_from_dict")
+    first = Stamps(p.module_manager.modules["Source"], "get_data")
+    done = Stamps(eng, "process_scan", keep=True)
+    stage = Stamps(slam, "process")
+    p2p_reduce.launches = 0
+    try:
+        statuses, stretch = drive_pipeline("localization", p, lambda: len(done.times), n)
+        launches = p2p_reduce.launches
+        side_scans = eng._lio_n
+        check_modules("localization", p, statuses)
+    finally:
+        for s in (read, conv, first, done, stage):
+            s.restore()
+        p.release()
+    statuses_out = [o["status"] for o in done.results[:n]]
+    poses = {}
+    for d in recorded_frames(out_dir):
+        poses.setdefault(d["frame_start_timestamp"], d["slam_pose"])
+    stamps = [20_000_000 + k * 100_000 for k in range(n)]
+    if sorted(poses) != stamps:
+        fail(f"pipeline (localization): the sink recorded {len(poses)} of {n} frames")
+    errs = [float(np.linalg.norm(np.asarray(poses[s])[:3, 3] - scans[k][5][:3, 3]))
+            for k, s in enumerate(stamps)]
+    rmse = float(np.sqrt(np.mean(np.square(errs[3:]))))
+    if not rmse < LOC_RMSE_LIMIT_M:
+        fail(f"pipeline (localization): position RMSE {rmse} m after the first 3 poses is not "
+             f"below {LOC_RMSE_LIMIT_M} m; errors {errs}; statuses {statuses_out}")
+    if not np.all(np.abs(np.diff(errs[-4:])) < LOC_TAIL_STEP_M):
+        fail(f"pipeline (localization): the last four errors {errs[-4:]} differ by "
+             f"{LOC_TAIL_STEP_M} m or more")
+    if side_scans != n or launches != eng.cfg.lio.max_iters * side_scans:
+        fail(f"pipeline (localization): p2p_reduce launched {launches} times, the side LIO ran "
+             f"{side_scans} scans of {n}; expected max_iters x side-LIO scans")
+    return pipeline_report(
+        "localization", card, n, first, done, stage, read, conv, direct, launches, stretch,
+        dict(imu_rows_per_frame=int(scans[0][4].sum()), imu_slots_per_lio_step=IMU_CAPACITY,
+             rmse_m=rmse, max_err_m=float(np.max(errs[3:])), last_errs_m=errs[-4:],
+             side_lio_scans=side_scans,
+             statuses={s: statuses_out.count(s) for s in sorted(set(statuses_out))}))
+
+
+def free_udp_port():
+    """A loopback UDP port that ``network_validation`` accepts (1024-49151)."""
+    import socket
+    for port in range(20000, 49151, 7):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            s.bind(("127.0.0.1", port))
+            return s
+        except OSError:
+            s.close()
+    fail("pipeline (detection): no free UDP port on the loopback")
+
+
+def run_pipeline_detection(dev, card, root, direct):
+    """Phase 10c: 20 frames of phase 8's drive through [Source, Detect,
+    Sink] with the 0.2 m checkpoint, the UDP sink sending to a receiver here."""
+    from lsd_tpu_torch.io.player import FramePlayer
+    from lsd_tpu_torch.io.recorder import FrameRecorder
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.proto.detection import parse_detection, serialize_detection
+    from lsd_tpu_torch.runtime import modules
+    from lsd_tpu_torch.tools.profile_detector import ego_drive
+    from lsd_tpu_torch.tools.recording import points_frame_dict
+
+    n = N_PIPE_DET
+    frames, _ = ego_drive(n)
+    rec = FrameRecorder(os.path.join(root, "rec_detection"))
+    for k, (pts, msk, motion) in enumerate(frames):
+        rec.write(points_frame_dict(pts, msk, 1_000_000 + k * 100_000, motion))
+    sock = free_udp_port()
+    sock.settimeout(0.2)
+    port = sock.getsockname()[1]
+    datagrams, stop = [], threading.Event()
+
+    def receive():
+        while not stop.is_set():
+            try:
+                datagrams.append(sock.recv(65535))
+            except OSError:
+                continue
+    receiver = threading.Thread(target=receive, name="UdpReceiver", daemon=True)
+    receiver.start()
+
+    def edit(cfg):
+        cfg["detection"].update(enable=True, capacity="reference")
+        cfg["output"]["protocol"]["UDP"].update(use=True, dest="127.0.0.1", port=port)
+    out_dir = os.path.join(root, "out_detection")
+    p = pipeline_perception(dev, rec.log_dir, out_dir, [["Source", "Detect", "Sink"]], edit)
+    detect = p.module_manager.modules["Detect"]
+    sink = p.module_manager.modules["Sink"]
+    read = Stamps(FramePlayer, "read_dict")
+    conv = Stamps(modules, "frame_from_dict")
+    first = Stamps(p.module_manager.modules["Source"], "get_data")
+    done = Stamps(detect, "process")
+    p2p_reduce.launches = 0
+    try:
+        statuses, stretch = drive_pipeline("detection", p, lambda: len(done.times), n)
+        launches = p2p_reduce.launches
+        deadline = time.perf_counter() + 30
+        while (sink.frames < n or len(datagrams) < n) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        check_modules("detection", p, statuses)
+    finally:
+        for s in (read, conv, first, done):
+            s.restore()
+        p.release()
+        stop.set()
+        receiver.join(5)
+        sock.close()
+    recorded = recorded_frames(out_dir)
+    m = min(len(recorded), len(datagrams))
+    stamps = [d["frame_start_timestamp"] for d in recorded[:n]]
+    if m < n or stamps != [1_000_000 + k * 100_000 for k in range(n)]:
+        fail(f"pipeline (detection): {len(recorded)} frames recorded, {len(datagrams)} datagrams "
+             f"received; expected the {n} frames in order first")
+    objects = []
+    for k in range(m):
+        got = parse_detection(datagrams[k])
+        want = parse_detection(serialize_detection(dict(objects=recorded[k]["objects"])))
+        if got["header"]["timestamp"] != recorded[k]["frame_timestamp_monotonic"] or \
+                got.get("object", []) != want.get("object", []):
+            fail(f"pipeline (detection): datagram {k} does not parse back to the objects the "
+                 f"sink recorded for frame {recorded[k]['frame_start_timestamp']}")
+        objects.append(len(recorded[k]["objects"]))
+    if not any(objects[:n]):
+        fail("pipeline (detection): no frame has an object")
+    if launches != 0:
+        fail(f"pipeline (detection): p2p_reduce launched {launches} times; no SLAM runs here")
+    return pipeline_report(
+        "detection", card, n, first, done, done, read, conv, direct, launches, stretch,
+        dict(datagrams=len(datagrams), recorded_frames=len(recorded),
+             objects_per_frame=objects[:n], udp_port=port))
+
+
+def run_pipeline(dev, card, sim, data, mapping_report, loc_report, det_report):
+    """Phase 10: the runtime's default pipeline, mapping, localization on
+    that map, and detection."""
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    report = {}
+    with tempfile.TemporaryDirectory() as root:
+        report["mapping"], map_dir = run_pipeline_mapping(
+            dev, card, root, sim, data, nav_at_start(sim, dev),
+            dict(phase4_sync=mapping_report["ms_per_scan"],
+                 phase4_async=mapping_report["async"]["ms_per_scan"]))
+        report["localization"] = run_pipeline_localization(
+            dev, card, root, sim, map_dir,
+            dict(phase6_process_scan_median=loc_report["ms_per_process_scan_median"]))
+        report["detection"] = run_pipeline_detection(
+            dev, card, root,
+            dict(phase8_frame_median=det_report["drive"]["reference"]["ms_per_frame_median"]))
+    return report
+
+
 def main() -> None:
+    # a fatal signal prints the stack of the thread that took it and of no
+    # other, so that the end of the error output shows it
+    faulthandler.enable(all_threads=False)
     try:
         import torch
     except ImportError:
@@ -1967,6 +2438,12 @@ def main() -> None:
     cam_report = run_camera(dev, card)
     p2p_report["launches_camera"] = cam_report["p2p_launches"]
 
+    # ---- 10. the runtime's default pipeline ---------------------------------
+    pipe_report = run_pipeline(dev, card, map_sim, map_data, mapping_report, loc_report,
+                               det_report)
+    for where in ("mapping", "localization", "detection"):
+        p2p_report[f"launches_pipeline_{where}"] = pipe_report[where]["p2p_launches"]
+
     print(json.dumps({"lio_step": lio_report}))
     print(json.dumps({"mapping": mapping_report}))
     print(json.dumps({"lio_step_points": points_report}))
@@ -1975,6 +2452,7 @@ def main() -> None:
     print(json.dumps({"icp_odometry": icp_odom_report}))
     print(json.dumps({"detection": det_report}))
     print(json.dumps({"camera": cam_report}))
+    print(json.dumps({"pipeline": pipe_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``lsd_tpu_torch/_build/`` (listed in
 ``.gitignore``), in a directory keyed by a hash of the source and the flags,
 and loaded with ``ctypes``.  Nothing is built when a module is imported.
+The first build may happen on any thread (a pipeline module's, a mapper's
+graph worker): ``load`` lets one thread of a process build and load a
+library while the others wait for it.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -64,7 +68,16 @@ def build(name: str) -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process,
+    one thread at a time."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))

@@ -47,6 +47,12 @@ like the model and decode inside ``Mono3DInfer``, makes no host sync
 (``Mono3DInfer.detect`` makes exactly one, its packed fetch);
 ``quantized_matmul`` through ``torch._int_mm`` gives the CPU's int32
 accumulators, with M, K and N padded to what that call takes.
+
+The runtime: two threads that reach the p2p kernel first at once build it
+once and both launch it right; ``SlamModule`` driven from a thread of its
+own gives the CPU's keyframes and GPS priors and poses within 0.02 m (the
+``Localizer`` bar above); ``knn_mean_colors`` within 1e-5 of the colours'
+range (TF32 off on both).
 """
 import numpy as np
 import pytest
@@ -772,3 +778,99 @@ def test_quantized_matmul_int_mm_on_card_equals_cpu(cuda, m, k, n):
     scale = torch.as_tensor(rng.uniform(0.01, 0.1, n).astype(np.float32))
     torch.testing.assert_close(tq.quantized_matmul(x.to(cuda), b.to(cuda), scale.to(cuda)).cpu(),
                                tq.quantized_matmul(x, b, scale), rtol=0, atol=0)
+
+
+def test_first_kernel_build_off_the_main_thread(cuda, tmp_path, monkeypatch):
+    """Two pipeline threads reach the p2p kernel first at once: one nvcc
+    build, both launches right."""
+    import threading
+    from lsd_tpu_torch.ops import p2p
+    from lsd_tpu_torch.utils import cuda_build
+    runs = []
+    real_run = cuda_build.subprocess.run
+
+    def counted(cmd, *a, **k):
+        runs.append(cmd)
+        return real_run(cmd, *a, **k)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build.subprocess, "run", counted)
+    cuda_build._load.cache_clear()
+    p2p._library.cache_clear()
+    args = _inputs(4096, cuda)
+    want = p2p.p2p_reduce_plain(*args, 1.0)
+    got, errors = [], []
+
+    def worker():
+        try:
+            got.append(p2p.p2p_reduce(*args, 1.0))
+        except Exception as exc:    # reported below: the thread must not die silently
+            errors.append(exc)
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    cuda_build._load.cache_clear()
+    p2p._library.cache_clear()
+    assert not errors and len(runs) == 1 and len(got) == 2
+    for out in got:
+        torch.testing.assert_close(out[2][0], want[2][0], rtol=0, atol=0)
+
+
+def test_slam_module_on_card_matches_cpu(cuda):
+    """``SlamModule`` (mapping, pipelined fetch, graph work inline) over 12
+    frames with RTK fixes on each device, driven from a thread of its own as
+    the pipeline drives it: the same keyframes and GPS priors, poses within
+    0.02 m, three p2p launches a frame on the card."""
+    import threading
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.runtime import clear_interfaces
+    from lsd_tpu_torch.runtime.config import ConfigManager
+    from lsd_tpu_torch.runtime.modules import SlamModule
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam.lio import lio_init
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    from lsd_tpu_torch.tools.recording import fix_projector, frame_dict, truth_fix
+    sim = CircleSim(SimConfig(radius=8.0, omega=0.8, n_scans=24, points_per_scan=4096,
+                              point_noise=0.01, seed=21))
+    proj, p0 = fix_projector(), sim.pose(0.0)[1]
+    frames = [frame_dict(s, 1_000_000 + k * 100_000,
+                         truth_fix(sim, (k + 1) * 0.1, 1_100_000 + k * 100_000, proj, p0))
+              for k, s in enumerate(sim.generate(capacity=4096, imu_capacity=16))]
+    runs = {}
+    for dev in ("cpu", cuda):
+        clear_interfaces()
+        cfg = ConfigManager().config
+        cfg.slam.update(resolution=0.4, key_frames_interval=[1.5, 0.3], async_graph=False)
+        m = SlamModule(cfg, device=dev)
+        m.setup(cfg)
+        m.engine.lio_state = lio_init(m.engine.cfg.lio, nav_at_start(sim, dev))
+        before = p2p_reduce.launches
+        poses = []
+        t = threading.Thread(target=lambda: poses.extend(
+            m.process(dict(d))["slam_pose"].copy() for d in frames + frames[-1:]))
+        t.start()
+        t.join()
+        assert len(poses) == len(frames) + 1 and len(m.engine.odometry) == len(frames)
+        if dev != "cpu":
+            assert p2p_reduce.launches - before == 3 * len(frames)
+        runs[str(dev)] = m.engine, np.stack(poses)
+        clear_interfaces()
+    (ce, cp), (ge, gp) = runs["cpu"], runs["cuda:0"]
+    assert [kf.stamp_us for kf in ge.store.frames] == [kf.stamp_us for kf in ce.store.frames]
+    assert len(ge.graph.gps) == len(ce.graph.gps) >= 2
+    np.testing.assert_allclose(gp, cp, rtol=0, atol=0.02)
+    np.testing.assert_allclose(np.stack([g[1] for g in ge.graph.gps]),
+                               np.stack([g[1] for g in ce.graph.gps]), rtol=0, atol=0.02)
+
+
+@pytest.mark.parametrize("n_cloud,n_query", [(700, 37), (70000, 2000)])
+def test_knn_mean_colors_on_card_matches_cpu(cuda, n_cloud, n_query):
+    from lsd_tpu_torch.slam.mesh import knn_mean_colors
+    rng = np.random.default_rng(n_cloud)
+    cloud = rng.normal(size=(n_cloud, 3)).astype(np.float32) * 4
+    rgb = rng.uniform(0, 255, (n_cloud, 3)).astype(np.float32)
+    q = rng.normal(size=(n_query, 3)).astype(np.float32) * 4
+    want = knn_mean_colors(cloud, rgb, q, device="cpu")
+    got = knn_mean_colors(cloud, rgb, q, device=cuda)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

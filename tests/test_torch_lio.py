@@ -207,7 +207,15 @@ def test_import_leaves_jax_out():
             "lsd_tpu_torch.utils.log", "lsd_tpu_torch.utils.period", "lsd_tpu_torch.utils.image",
             "lsd_tpu_torch.runtime.interface", "lsd_tpu_torch.runtime.pipeline",
             "lsd_tpu_torch.runtime.config", "lsd_tpu_torch.runtime.trafficlight_module",
-            "lsd_tpu_torch.io.frame"} <= set(mods)
+            "lsd_tpu_torch.io.frame", "lsd_tpu_torch.runtime.perception",
+            "lsd_tpu_torch.__main__", "lsd_tpu_torch.runtime.source_manager",
+            "lsd_tpu_torch.slam.map_editor", "lsd_tpu_torch.slam.map_merge",
+            "lsd_tpu_torch.slam.mesh", "lsd_tpu_torch.slam.map_render",
+            "lsd_tpu_torch.comms.bus", "lsd_tpu_torch.comms.messages",
+            "lsd_tpu_torch.proto.detection", "lsd_tpu_torch.proto.internal",
+            "lsd_tpu_torch.io.player", "lsd_tpu_torch.io.recorder",
+            "lsd_tpu_torch.sensors.ins_status", "lsd_tpu_torch.utils.system",
+            "lsd_tpu_torch.utils.network", "lsd_tpu_torch.tools.recording"} <= set(mods)
     assert len(mods) > 50
     pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
     code = ("import sys; import lsd_tpu_torch, " + ", ".join(pkgs + mods) + "; "
