@@ -143,6 +143,29 @@ Phases, in order; any failure exits non-zero:
    per frame; launches; the device's idle share over PIPE_PROFILED profiled
    frames; and the host ms of reading a frame (pickle and normalization)
    and of ``frame_from_dict``, wall and thread CPU.
+11. Training at full width (``training_setups``): the CenterPoint trainer
+   at the 0.2 m capacity (640^2 grid, 65,536 pillars of 8 points, bf16,
+   batch 2 of the realistic scenes ``tools/train.py --ref-capacity
+   --realistic`` trains on), Mono3D at 384 x 640 (float32, batch 4) and
+   Yolo2D at 256 x 320 (bf16, 4 classes, batch 8).  For each: (1) from the
+   shipped checkpoint, one batch's gradients on the card against the CPU:
+   float32 ones (the detector's float32 twin, Mono3D; TF32 off) must be as
+   close to their float64 twin's (on the card) as the CPU's are, per leaf
+   within TRAIN_GRAD_RTOL or twice the CPU's distance; Yolo2D's, bf16 in
+   both places, at cosine >= YOLO_GRAD_COS and relative norm gap <=
+   YOLO_GRAD_GAP per leaf (the conv biases that a GroupNorm follows are
+   reported); the optimizer's update from the same gradient within
+   TRAIN_GRAD_RTOL.  (2) From a seeded initialisation, TRAIN_LEARN_STEPS
+   steps: every loss finite, the mean of the last 10 below (1 -
+   TRAIN_LOSS_DROP) times the first 10's.  (3) Warm-started from the shipped
+   checkpoint, TRAIN_WARM_STEPS steps, ``save``: the file has the shipped
+   file's keys and shapes and serves through the served path
+   (``build_detector_predict_fn``, ``Mono3DInfer``, ``build_yolo_predict_fn``)
+   within the model's AP bar of phases 8 and 9.  (4) Reported: ms per step
+   (CUDA events; host clock ending in a synchronize), frames/s, forward and
+   loss, backward and optimizer by CUDA events, launches and host syncs per
+   step, peak memory, the device's idle share, spans ``train/*`` and the top
+   kernels.  The p2p kernel is not launched.
 
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
@@ -227,6 +250,33 @@ PIPE_PROFILED = 5
 PIPE_PROFILE_FROM = {"mapping": 80, "localization": 60, "detection": 13}
 PIPE_SPANS = ("lio_step/", "mapper/", "localizer/", "detect/")
 PIPE_TIMEOUT_S = 300
+# phase 11: training.  Card against CPU from the shipped checkpoints on one
+# batch, TF32 off: float32 gradients (the detector's float32 twin, Mono3D)
+# as close to their float64 twin's as the CPU's, per leaf within
+# TRAIN_GRAD_RTOL or twice the CPU's distance of the leaf's largest
+# magnitude (the CPU's own float32 gradient of the detector's first block
+# lies 1.06e-2 of its largest magnitude from the float64 twin's at full width
+# in a card run, and 4.1e-2 of a bias's at the rehearsal's size); the
+# optimizer's update from the same gradient within TRAIN_GRAD_RTOL; Yolo2D,
+# bf16 in both places, per leaf by cosine and relative norm gap (the CPU
+# parity bars of tests/test_torch_train_camera.py against the reference).  From a seeded
+# initialisation, TRAIN_LEARN_STEPS steps at TRAIN_LEARN_LR with warmup
+# TRAIN_LEARN_WARMUP (the camera trainers' warmup is the reference's fixed
+# 100): the mean loss of the last 10 below (1 - TRAIN_LOSS_DROP) times that
+# of the first 10, every loss finite; the drops were set from a CPU
+# rehearsal at reduced size before the first card run.  From the shipped
+# checkpoints, TRAIN_WARM_STEPS steps at peak lr TRAIN_WARM_LR, saved, and
+# served within each model's AP bar above.  TRAIN_TIMED_STEPS steps timed.
+TRAIN_GRAD_RTOL = 1e-3
+YOLO_GRAD_COS, YOLO_GRAD_GAP = 0.999, 0.05
+TRAIN_LEARN_STEPS = {"detector": 60, "mono3d": 60, "yolo2d": 60}
+TRAIN_LEARN_LR = {"detector": 2e-3, "mono3d": 5e-3, "yolo2d": 5e-3}
+TRAIN_LEARN_WARMUP = 5
+# rehearse_training() (the CPU, reduced size: detector +-25.6 m, Mono3D
+# 96 x 160, Yolo2D 128 x 160, full widths otherwise) fell by 0.303, 0.558 and
+# 0.807; the bars are about half of that
+TRAIN_LOSS_DROP = {"detector": 0.15, "mono3d": 0.25, "yolo2d": 0.4}
+TRAIN_WARM_STEPS, TRAIN_WARM_LR, TRAIN_TIMED_STEPS = 3, 1e-5, 20
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -2323,6 +2373,414 @@ def run_pipeline(dev, card, sim, data, mapping_report, loc_report, det_report):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+
+
+def training_setups():
+    """Per model: its trainer (``make(device, seed, lr, warmup, total,
+    dtype)``; ``dtype`` None trains in the model's own types, float32 gives
+    the detector's float32 twin), its batches, its shipped checkpoint and
+    how the served path scores a checkpoint (mean AP, the JAX package's,
+    the bar)."""
+    import torch
+    from lsd_tpu_torch.detection.mono3d_infer import Mono3DInfer
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.models.mono3d import Mono3DConfig
+    from lsd_tpu_torch.models.yolo2d import Yolo2DConfig
+    from lsd_tpu_torch.runtime.modules import build_detector_predict_fn
+    from lsd_tpu_torch.runtime.trafficlight_module import build_yolo_predict_fn
+    from lsd_tpu_torch.tools.profile_detector import eval_scenes, mean_ap, scene_config
+    from lsd_tpu_torch.training import camera_data as cd
+    from lsd_tpu_torch.training.data import SyntheticDetectionDataset
+    from lsd_tpu_torch.training.mono3d import Mono3DTrainer
+    from lsd_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from lsd_tpu_torch.training.yolo import YoloTrainer
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights")
+
+    def detector(dev, seed, lr, warmup, total, dtype=None):
+        return Trainer(DetectorConfig.reference_capacity(),
+                       TrainerConfig(lr=lr, warmup_steps=warmup, total_steps=total), device=dev,
+                       seed=seed, dtype=dtype or torch.bfloat16)
+
+    def detector_ap(path, dev):
+        predict = build_detector_predict_fn(path, DetectorConfig.reference_capacity(), device=dev)
+        return mean_ap(predict, eval_scenes())[0], JAX_MEAN_AP["reference"], DET_AP_MARGIN
+
+    def mono3d_ap(path, dev):
+        scenes = cd.SyntheticMono3DDataset(cd.Mono3DSceneConfig(hw=(384, 640)), batch_size=4,
+                                           seed=999).batches(4)
+        model = Mono3DInfer(path, device=dev).model
+        frames = cd.mono3d_frames(model, scenes, cd.default_intrinsic((384, 640)), dev)
+        return cd.mono3d_ap(frames)["mean_ap"], JAX_MONO3D_AP, MONO3D_AP_BAR
+
+    def yolo_ap(path, dev):
+        model = build_yolo_predict_fn(path, cfg=Yolo2DConfig(num_classes=4), device=dev).model
+        scenes = cd.SyntheticTrafficLightDataset(cd.TrafficLightSceneConfig(), batch_size=4,
+                                                 seed=999).batches(4)
+        return cd.yolo2d_ap(cd.yolo2d_frames(model, scenes, dev), 4)["mean_ap"], JAX_YOLO_AP, \
+            YOLO_AP_BAR
+
+    return {
+        "detector": dict(
+            make=detector, weights=os.path.join(root, "detector_refcap.msgpack"),
+            data=lambda seed: SyntheticDetectionDataset(scene_config(), batch_size=2, seed=seed),
+            batch=2, serve=detector_ap),
+        "mono3d": dict(
+            make=lambda dev, seed, lr, warmup, total, dtype=None: Mono3DTrainer(
+                Mono3DConfig(), lr=lr, total_steps=total, seed=seed, device=dev),
+            weights=os.path.join(root, "mono3d.msgpack"),
+            data=lambda seed: cd.SyntheticMono3DDataset(cd.Mono3DSceneConfig(hw=(384, 640)),
+                                                        batch_size=4, seed=seed),
+            batch=4, serve=mono3d_ap),
+        "yolo2d": dict(
+            make=lambda dev, seed, lr, warmup, total, dtype=None: YoloTrainer(
+                Yolo2DConfig(num_classes=4), hw=(256, 320), lr=lr, total_steps=total, seed=seed,
+                device=dev),
+            weights=os.path.join(root, "yolo2d_trafficlight.msgpack"),
+            data=lambda seed: cd.SyntheticTrafficLightDataset(cd.TrafficLightSceneConfig(),
+                                                              batch_size=8, seed=seed),
+            batch=8, serve=yolo_ap),
+    }
+
+
+def gradients(tr, batch):
+    """(loss, {name: gradient}) of one batch, nothing stepped; a float64
+    model takes its image in float64."""
+    import torch
+    if "image" in batch and next(tr.model.parameters()).dtype == torch.float64:
+        batch = dict(batch, image=batch["image"].astype(np.float64))
+    tr.opt.zero_grad()
+    loss, _ = tr.loss_on_batch(tr.upload(batch))
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in tr.model.named_parameters()}
+
+
+def leaf_share(got, want):
+    """Largest |got - want| over the largest |want|, each leaf on the CPU."""
+    return {n: float((got[n].cpu() - w).abs().max() / max(float(w.abs().max()), 1e-30))
+            for n, w in want.items()}
+
+
+def leaf_cos_gap(got, want):
+    """Per leaf: (cosine similarity, relative norm gap) in float64."""
+    out = {}
+    for n, w in want.items():
+        g, w = got[n].cpu().double().reshape(-1), w.double().reshape(-1)
+        out[n] = (float(g @ w / (g.norm() * w.norm())), float((g - w).norm() / w.norm()))
+    return out
+
+
+def optimizer_update(tr, grads):
+    """The parameters' change of one optimizer step from ``grads`` with the
+    optimizer at the end of its warmup (peak lr, zero moments); the
+    parameters and the optimizer are put back."""
+    import torch
+    state = {k: (v if isinstance(v, int) else {n: t.clone() for n, t in v.items()})
+             for k, v in tr.opt.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    tr.opt.count = tr.opt.schedule_count = tr.opt.warmup_steps
+    for n, p in tr.model.named_parameters():
+        p.grad = grads[n].to(p.device)
+    tr.opt.step()
+    tr.opt.zero_grad()
+    upd = {n: p.detach() - before[n] for n, p in tr.model.named_parameters()}
+    with torch.no_grad():
+        for n, p in tr.model.named_parameters():
+            p.copy_(before[n])
+    tr.opt.load_state_dict(state)
+    return upd
+
+
+def check_train_parity(name, setup, dev):
+    """Step 1: one batch's gradients on the card against the CPU, from the
+    shipped checkpoint, and the optimizer's update from the same gradient.
+    The float32 models are also held to their float64 twin on the card: the
+    card's gradient must be as close to it as the CPU's (within
+    TRAIN_GRAD_RTOL or twice the CPU's distance, per leaf)."""
+    import torch
+    batch = next(setup["data"](1).batches(1))
+    float_twin = name != "yolo2d"           # Yolo2D computes in bf16 everywhere
+    runs = {}
+    for key, where, dtype in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+                              ("card64", dev, torch.float64)):
+        if key == "card64" and not float_twin:
+            continue
+        tr = setup["make"](where, 0, 1e-3, 100, 1000, dtype if float_twin else None)
+        if dtype == torch.float64:
+            tr.model.double()
+        tr.load(setup["weights"])
+        t0 = time.perf_counter()
+        loss, grads = gradients(tr, batch)
+        runs[key] = (tr, loss, grads, (time.perf_counter() - t0) * 1e3)
+    (cpu_tr, cpu_loss, cpu_g, cpu_ms), (card_tr, card_loss, card_g, card_ms) = \
+        runs["cpu"], runs["card"]
+    report = dict(loss_cpu=cpu_loss, loss_card=card_loss, cpu_ms=cpu_ms, card_ms=card_ms,
+                  leaves=len(cpu_g))
+    if float_twin:
+        truth = {n: g.cpu().double() for n, g in runs["card64"][2].items()}
+        share = leaf_share(card_g, cpu_g)
+        to_cpu, to_card = leaf_share(cpu_g, truth), leaf_share(card_g, truth)
+        bars = {n: max(TRAIN_GRAD_RTOL, 2.0 * e) for n, e in to_cpu.items()}
+        worst = max(share, key=share.get)
+        report.update(loss_float64=runs["card64"][1], grad_card_vs_cpu_max_share=share[worst],
+                      grad_card_vs_cpu_worst_leaf=worst,
+                      grad_cpu_vs_float64_max_share=max(to_cpu.values()),
+                      grad_cpu_vs_float64_worst_leaf=max(to_cpu, key=to_cpu.get),
+                      grad_card_vs_float64_max_share=max(to_card.values()),
+                      grad_card_vs_float64_worst_leaf=max(to_card, key=to_card.get),
+                      float64_ms=runs["card64"][3])
+        bad = {n: (e, bars[n]) for n, e in to_card.items() if e > bars[n]}
+        if bad:
+            fail(f"training ({name}): the card's float32 gradients are further from the float64 "
+                 f"twin's than the CPU's allow (leaf: distance, bar): {bad}")
+    else:
+        cg = leaf_cos_gap(card_g, cpu_g)
+        # a ConvBlock's conv bias feeds a GroupNorm, which subtracts each
+        # group's mean: its exact gradient is (nearly) 0 and what either place
+        # computes is bf16 rounding (tests/test_torch_train_camera.py)
+        judged = {n: v for n, v in cg.items() if not (n.startswith("ConvBlock")
+                                                      and n.endswith("Conv_0.bias"))}
+        report.update(min_cos=min(c for c, _ in judged.values()),
+                      max_gap=max(g for _, g in judged.values()),
+                      before_groupnorm_cos={n: c for n, (c, _) in cg.items() if n not in judged})
+        bad = {n: v for n, v in judged.items() if v[0] < YOLO_GRAD_COS or v[1] > YOLO_GRAD_GAP}
+        if bad:
+            fail(f"training ({name}): gradients differ between card and CPU beyond cosine "
+                 f"{YOLO_GRAD_COS} / gap {YOLO_GRAD_GAP}: {bad}")
+    # the optimizer on the card against the CPU, both from the CPU's gradient
+    upd_cpu = optimizer_update(cpu_tr, cpu_g)
+    upd_card = optimizer_update(card_tr, cpu_g)
+    ushare = leaf_share(upd_card, upd_cpu)
+    uworst = max(ushare, key=ushare.get)
+    # not judged: the card's update from its own gradient (Adam divides each
+    # element by its own RMS: a gradient within rounding noise of 0 moves by
+    # up to lr either way)
+    own = leaf_cos_gap(optimizer_update(card_tr, card_g), upd_cpu)
+    report.update(update_max_share=ushare[uworst], update_worst_leaf=uworst,
+                  own_gradient_update_max_gap=max(g for _, g in own.values()),
+                  own_gradient_update_min_cos=min(c for c, _ in own.values()))
+    if ushare[uworst] > TRAIN_GRAD_RTOL:
+        fail(f"training ({name}): the optimizer's update of {uworst} differs between card and "
+             f"CPU by {ushare[uworst]:.3e} of its largest magnitude (bar {TRAIN_GRAD_RTOL})")
+    log(f"training ({name}), card against CPU from the shipped checkpoint: {report}")
+    return report
+
+
+def check_learns(name, setup, dev):
+    """Step 2: from a seeded initialisation the loss falls."""
+    import torch
+    n = TRAIN_LEARN_STEPS[name]
+    tr = setup["make"](dev, 0, TRAIN_LEARN_LR[name], TRAIN_LEARN_WARMUP, n)
+    t0 = time.perf_counter()
+    losses = [tr.train_step(tr.upload(b))[0] for b in setup["data"](0).batches(n)]
+    losses = torch.stack(losses).cpu().numpy().astype(float)
+    wall = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    drop = 1.0 - last / first
+    report = dict(steps=n, lr=TRAIN_LEARN_LR[name], first10=first, last10=last, drop=drop,
+                  bar=TRAIN_LOSS_DROP[name], s_with_data=wall, losses=losses.tolist())
+    log(f"training ({name}), {n} steps from a seeded initialisation: mean loss of the first 10 "
+        f"{first:.4f}, of the last 10 {last:.4f}, drop {drop:.3f} (bar {TRAIN_LOSS_DROP[name]})")
+    if not np.isfinite(losses).all():
+        fail(f"training ({name}): a loss is not finite: {losses.tolist()}")
+    if not drop > TRAIN_LOSS_DROP[name]:
+        fail(f"training ({name}): the mean loss fell by {drop:.3f}, not by more than "
+             f"{TRAIN_LOSS_DROP[name]}")
+    return report
+
+
+def flat_shapes(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_shapes(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = (tuple(v.shape), str(v.dtype))
+    return out
+
+
+def check_warm_checkpoint(name, setup, dev, out_dir):
+    """Step 3: warm-started from the shipped checkpoint, a few steps, saved,
+    and served within the model's AP bar."""
+    from lsd_tpu_torch.models.params_io import load_params
+    tr = setup["make"](dev, 0, TRAIN_WARM_LR, 1, TRAIN_WARM_STEPS + 1)
+    tr.load(setup["weights"])
+    for b in setup["data"](2).batches(TRAIN_WARM_STEPS):
+        tr.train_step(tr.upload(b))
+    path = tr.save(os.path.join(out_dir, f"{name}.msgpack"))
+    saved, shipped = flat_shapes(load_params(path)), flat_shapes(load_params(setup["weights"]))
+    if saved != shipped:
+        fail(f"training ({name}): the saved checkpoint's keys or shapes differ from the shipped "
+             f"file's: {sorted(set(saved.items()) ^ set(shipped.items()))[:6]}")
+    ap, ref, bar = setup["serve"](path, dev)
+    report = dict(steps=TRAIN_WARM_STEPS, lr=TRAIN_WARM_LR, leaves=len(saved), mean_ap=ap,
+                  jax_mean_ap=ref, bar=bar)
+    log(f"training ({name}): warm-started, {TRAIN_WARM_STEPS} steps, saved and served: "
+        f"mean AP {ap:.4f} (the JAX package's {ref:.4f}, bar {bar})")
+    if not abs(ap - ref) <= bar:
+        fail(f"training ({name}): the saved checkpoint serves at mean AP {ap:.4f}, not within "
+             f"{bar} of {ref:.4f}")
+    return report, tr
+
+
+def time_training(tr, setup):
+    """Step 4 (reported): one batch's step timed and profiled."""
+    import torch
+    batch = next(setup["data"](3).batches(1))
+    step = lambda: tr.train_step(tr.upload(batch))
+    events_ms = time_ms(step, n=TRAIN_TIMED_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
+    # the step's parts between CUDA events (gaps between them included)
+    parts = {k: [] for k in ("forward_and_loss", "backward", "optim")}
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = tr.loss_on_batch(tr.upload(batch))
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tr.opt.step()
+        tr.opt.zero_grad()
+        ev[3].record()
+        ev[3].synchronize()
+        for k, a, b in zip(parts, ev, ev[1:]):
+            parts[k].append(a.elapsed_time(b))
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    syncs, sites = syncs_per_call(step)
+    # the detector's spans detect/* nest in train/forward
+    prof = profile_calls(step, 5, prefixes=("train/", "detect/"))
+    return dict(batch=setup["batch"], ms_per_step_events=events_ms, ms_per_step_wall=wall_ms,
+                frames_per_s=setup["batch"] / wall_ms * 1e3,
+                ms_by_part_events={k: float(np.median(v)) for k, v in parts.items()},
+                peak_memory_bytes=int(peak), host_syncs_per_step=syncs, host_sync_sites=sites,
+                # the device's busy time over the untraced step (the trace's
+                # own wall time includes the profiler's cost)
+                device_idle_share_untraced=1.0 - prof["device_busy_ms"] / wall_ms, **prof)
+
+
+def run_training(dev, card):
+    """Phase 11: the three trainers at full width on the card."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    p2p_reduce.launches = 0
+    report = dict(card=card)
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, setup in training_setups().items():
+            t0 = time.perf_counter()
+            rep = dict(parity=check_train_parity(name, setup, dev))
+            rep["learns"] = check_learns(name, setup, dev)
+            rep["checkpoint"], tr = check_warm_checkpoint(name, setup, dev, out_dir)
+            rep["step"] = time_training(tr, setup)
+            rep["phase_s"] = time.perf_counter() - t0
+            log(f"training ({name}) on {card}: {rep['step']['ms_per_step_events']:.2f} ms per step "
+                f"(CUDA events), {rep['step']['ms_per_step_wall']:.2f} ms on the host clock, "
+                f"{rep['step']['frames_per_s']:.1f} frames/s, parts {rep['step']['ms_by_part_events']}, "
+                f"{rep['step']['launches']:.0f} launches and {rep['step']['host_syncs_per_step']} "
+                f"host syncs per step, peak memory {rep['step']['peak_memory_bytes'] / 2**30:.2f} "
+                f"GiB, idle {rep['step']['device_idle_share_untraced']:.3f} "
+                f"({rep['step']['device_idle_share']:.3f} traced), spans {rep['step']['spans']}, "
+                f"top kernels {rep['step']['top_kernels']}; {rep['phase_s']:.1f} s")
+            report[name] = rep
+            del tr
+            torch.cuda.empty_cache()
+    report["p2p_launches"] = p2p_reduce.launches
+    if p2p_reduce.launches != 0:
+        fail(f"training: p2p_reduce launched {p2p_reduce.launches} times; no SLAM runs here")
+    return report
+
+
+def rehearse_training():
+    """Phase 11 on the host's CPU at reduced size, to check its control flow
+    and set its loss-drop bars before a card run (the card-vs-CPU checks
+    then compare the CPU with itself, and nothing of the card is timed):
+
+        python3 -c "import chip_smoke; chip_smoke.rehearse_training()"
+
+    The detector at +-25.6 m (16,384 pillars, 2**14 points), Mono3D at
+    96 x 160 and Yolo2D at 128 x 160, full widths otherwise (the shipped
+    weights load at any grid or image size); the AP bars are not judged.
+    Prints each model's loss drop and parity report; ~90 s."""
+    import torch
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.models.mono3d import Mono3DConfig
+    from lsd_tpu_torch.models.yolo2d import Yolo2DConfig
+    from lsd_tpu_torch.training import camera_data as cd
+    from lsd_tpu_torch.training.data import SyntheticDetectionDataset, SyntheticSceneConfig
+    from lsd_tpu_torch.training.mono3d import Mono3DTrainer
+    from lsd_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from lsd_tpu_torch.training.yolo import YoloTrainer
+
+    class Event:
+        def __init__(self, **_):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    g = globals()
+    saved = {k: g[k] for k in ("time_ms", "profile_calls", "syncs_per_call", "training_setups",
+                               "TRAIN_LOSS_DROP")}
+    saved_cuda = {k: getattr(torch.cuda, k) for k in (
+        "Event", "synchronize", "reset_peak_memory_stats", "max_memory_allocated", "empty_cache")}
+    full = training_setups()
+    dcfg = DetectorConfig.reference_capacity()._replace(
+        pc_range=(-25.6, -25.6, -3.0, 25.6, 25.6, 3.0), max_voxels=16384)
+    scfg = SyntheticSceneConfig(realistic=True, xy_range=24.0)
+    m_hw, y_hw = (96, 160), (128, 160)
+    small = {
+        "detector": dict(make=lambda dev, seed, lr, warmup, total, dtype=None: Trainer(
+            dcfg, TrainerConfig(lr=lr, warmup_steps=warmup, total_steps=total), device=dev,
+            seed=seed, dtype=dtype or torch.bfloat16),
+            data=lambda seed: SyntheticDetectionDataset(scfg, point_capacity=2 ** 14,
+                                                        batch_size=2, seed=seed)),
+        "mono3d": dict(make=lambda dev, seed, lr, warmup, total, dtype=None: Mono3DTrainer(
+            Mono3DConfig(image_hw=m_hw), lr=lr, total_steps=total, seed=seed, device=dev),
+            data=lambda seed: cd.SyntheticMono3DDataset(cd.Mono3DSceneConfig(hw=m_hw),
+                                                        batch_size=4, seed=seed)),
+        "yolo2d": dict(make=lambda dev, seed, lr, warmup, total, dtype=None: YoloTrainer(
+            Yolo2DConfig(num_classes=4), hw=y_hw, lr=lr, total_steps=total, seed=seed,
+            device=dev),
+            data=lambda seed: cd.SyntheticTrafficLightDataset(cd.TrafficLightSceneConfig(hw=y_hw),
+                                                              batch_size=8, seed=seed))}
+    try:
+        for k in saved_cuda:
+            setattr(torch.cuda, k, Event if k == "Event" else (lambda *a, **kw: 0))
+        g["time_ms"] = lambda fn, n=N_TIMING: (fn(), 0.0)[1]
+        g["profile_calls"] = lambda fn, n, prefixes=(): dict(launches=0, device_busy_ms=0.0,
+                                                             device_idle_share=0.0, spans={},
+                                                             top_kernels=[])
+        g["syncs_per_call"] = lambda fn, n=3: (0, {})
+        g["training_setups"] = lambda: {
+            name: dict(full[name], serve=lambda path, dev: (0.0, 0.0, 1.0), **small[name])
+            for name in full}
+        g["TRAIN_LOSS_DROP"] = {name: float("-inf") for name in full}
+        report = run_training(torch.device("cpu"), "CPU rehearsal")
+    finally:
+        g.update(saved)
+        for k, v in saved_cuda.items():
+            setattr(torch.cuda, k, v)
+    for name in full:
+        log(f"rehearsal ({name}): loss drop {report[name]['learns']['drop']:.3f}, parity "
+            f"{report[name]['parity']}")
+    return report
+
+
 def main() -> None:
     # a fatal signal prints the stack of the thread that took it and of no
     # other, so that the end of the error output shows it
@@ -2444,6 +2902,10 @@ def main() -> None:
     for where in ("mapping", "localization", "detection"):
         p2p_report[f"launches_pipeline_{where}"] = pipe_report[where]["p2p_launches"]
 
+    # ---- 11. training ---------------------------------------------------------
+    train_report = run_training(dev, card)
+    p2p_report["launches_training"] = train_report["p2p_launches"]
+
     print(json.dumps({"lio_step": lio_report}))
     print(json.dumps({"mapping": mapping_report}))
     print(json.dumps({"lio_step_points": points_report}))
@@ -2453,6 +2915,7 @@ def main() -> None:
     print(json.dumps({"detection": det_report}))
     print(json.dumps({"camera": cam_report}))
     print(json.dumps({"pipeline": pipe_report}))
+    print(json.dumps({"training": train_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ through numpy.  The detector has weights: ``detector_params_from_flax``
 turns a flax parameter tree (a shipped checkpoint as
 ``models/params_io.load_params`` reads it) into the ``state_dict`` of the
 port's ``CenterPointDetector``, ``detector_params_to_flax`` the other way;
-``mono3d_params_*`` and ``yolo2d_params_*`` do the same for the camera
-models, whose modules carry the flax tree's names, and ``load_camera_params``
-loads a checkpoint into one after checking every shape.
+``camera_params_*`` do the same for the camera models (Mono3D, Yolo2D),
+whose modules carry the flax tree's names, and ``load_camera_params``
+loads a checkpoint into one after checking every shape.  A trainer's
+optimizer state moves with ``optimizer_state_{from,to}_optax``, its
+moments through the same leaf mapping as the weights.
 
 - ``*_from_numpy(tree, device)`` takes the JAX object after
   ``jax.device_get`` (numpy leaves, fields read by name, so this module
@@ -249,16 +251,19 @@ def detector_params_from_flax(tree) -> "dict[str, torch.Tensor]":
     return out
 
 
-def detector_params_to_flax(model: CenterPointDetector) -> dict:
+def detector_params_to_flax(model: CenterPointDetector, tensors=None) -> dict:
     """``{"params": {...}}`` of numpy float32 arrays for the reference's
-    ``CenterPointDetector`` with the weights of the port's ``model``."""
+    ``CenterPointDetector`` with the weights of the port's ``model``, or
+    with ``tensors`` (a mapping of its parameter names to tensors of their
+    shapes, such as an optimizer's moments) in their place."""
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
     n_conv_ups = sum(isinstance(m, torch.nn.Conv2d) for m in model.backbone.ups)
     params: dict = {}
     for name, mod in model.named_modules():
         if not isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d,
                                 torch.nn.LayerNorm, torch.nn.GroupNorm)):
             continue
-        w = _a(mod.weight)
+        w = _a(tensors[name + ".weight"])
         if isinstance(mod, torch.nn.Linear):
             leaf = dict(kernel=w.T)
         elif isinstance(mod, torch.nn.ConvTranspose2d):
@@ -267,7 +272,7 @@ def detector_params_to_flax(model: CenterPointDetector) -> dict:
             leaf = dict(kernel=w.transpose(2, 3, 1, 0))
         else:
             leaf = dict(scale=w)
-        leaf["bias"] = _a(mod.bias)
+        leaf["bias"] = _a(tensors[name + ".bias"])
         node = params
         for part in _flax_module(name, n_conv_ups):
             node = node.setdefault(part, {})
@@ -302,11 +307,13 @@ def camera_params_from_flax(tree) -> "dict[str, torch.Tensor]":
     return out
 
 
-def camera_params_to_flax(model: torch.nn.Module) -> dict:
+def camera_params_to_flax(model: torch.nn.Module, tensors=None) -> dict:
     """``{"params": {...}}`` of numpy float32 arrays for the reference's
-    ``Mono3D`` or ``Yolo2D`` with the weights of the port's ``model``."""
+    ``Mono3D`` or ``Yolo2D`` with the weights of the port's ``model``, or
+    with ``tensors`` (a mapping of its parameter names to tensors of their
+    shapes) in their place."""
     params: dict = {}
-    for name, t in model.state_dict().items():
+    for name, t in (model.state_dict() if tensors is None else tensors).items():
         *path, leaf = name.split(".")
         a = _a(t)
         if a.ndim == 4:
@@ -334,3 +341,45 @@ def load_camera_params(model: torch.nn.Module, tree) -> None:
                 f"the checkpoint does not fit {type(model).__name__}({model.cfg}): "
                 f"{name} is {got_shape} in the checkpoint and {want_shape} in the model")
     model.load_state_dict(state)
+
+
+# --------------------------------------------------------------------------
+# optimizer state.  optax's state of the trainers' chain
+# ``chain(clip_by_global_norm, adamw(schedule))`` is
+# ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState(),
+# ScaleByScheduleState(count)))``, ``mu`` and ``nu`` trees of the model's
+# parameter layout; the port's is ``training.optim.ClippedAdamW.state_dict()``.
+
+
+def _params_from_flax(model: torch.nn.Module, tree) -> "dict[str, torch.Tensor]":
+    if isinstance(model, CenterPointDetector):
+        return detector_params_from_flax(tree)
+    return camera_params_from_flax(tree)
+
+
+def _params_to_flax(model: torch.nn.Module, tensors) -> dict:
+    if isinstance(model, CenterPointDetector):
+        return detector_params_to_flax(model, tensors)
+    return camera_params_to_flax(model, tensors)
+
+
+def optimizer_state_from_optax(tree, model: torch.nn.Module) -> dict:
+    """``ClippedAdamW.state_dict()`` (moments float32, on the CPU) from
+    optax's state of the chain for ``model`` (a ``CenterPointDetector``,
+    ``Mono3D`` or ``Yolo2D``): the state after ``jax.device_get`` (fields
+    read by name) or the tuple ``optimizer_state_to_optax`` returns."""
+    _, (adam, _, schedule) = tree
+    return dict(count=int(_field(adam, "count")), schedule_count=int(_field(schedule, "count")),
+                mu=_params_from_flax(model, _field(adam, "mu")),
+                nu=_params_from_flax(model, _field(adam, "nu")))
+
+
+def optimizer_state_to_optax(state: dict, model: torch.nn.Module) -> tuple:
+    """optax's state layout of ``ClippedAdamW.state_dict()`` for ``model``:
+    ``({}, ({"count", "mu", "nu"}, {}, {"count"}))`` with numpy leaves,
+    counts int32; the reference's state rebuilds from it by keyword:
+    ``(EmptyState(), (ScaleByAdamState(**a), EmptyState(),
+    ScaleByScheduleState(**s)))``."""
+    adam = dict(count=np.int32(state["count"]), mu=_params_to_flax(model, state["mu"]),
+                nu=_params_to_flax(model, state["nu"]))
+    return ({}, (adam, {}, dict(count=np.int32(state["schedule_count"]))))

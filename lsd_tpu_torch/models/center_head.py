@@ -3,8 +3,8 @@
 
 ``CenterHead`` maps BEV features (N, C, H, W) to six prediction maps
 (heatmap, centre offset, z, log-dims, sin/cos heading, freespace
-segmentation); each head's last 1x1 conv runs in float32, the rest in
-``dtype``.  ``decode_boxes`` takes the maps in the reference's (H, W, C)
+segmentation); each head's last 1x1 conv runs in float32 (float64 in a
+float64 twin), the rest in ``dtype``.  ``decode_boxes`` takes the maps in the reference's (H, W, C)
 layout: the top-K runs over the heatmap flattened as (H, W, C), so
 ``index % C`` is the class.
 """
@@ -40,10 +40,10 @@ class CenterHead(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x (N, C, H, W) -> dict of float32 prediction maps (N, c, H, W)."""
         shared = torch.relu(conv2d(self.shared, x, self.dtype, padding=1))
-        out = {}
+        out, out_dtype = {}, torch.promote_types(self.dtype, torch.float32)
         for name, head in self.heads.items():
             h = torch.relu(conv2d(head["conv1"], shared, self.dtype, padding=1))
-            out[HEADS[name][0]] = conv2d(head["out"], h, torch.float32)
+            out[HEADS[name][0]] = conv2d(head["out"], h, out_dtype)
         return out
 
 

@@ -22,12 +22,18 @@ name.  Three places where flax and PyTorch differ and the port follows flax:
 ``Mono3D`` takes (N, 3, H, W) images in [0, 1] and returns (N, c, H/4, W/4)
 maps; ``maps_hwc`` gives one image's maps in the reference's (H, W, c)
 layout, which ``decode_mono3d`` takes.
+
+Training (``lsd_tpu/models/mono3d.py:144-207``): ``make_mono3d_targets``
+is a numpy copy (the datasets draw the targets on the host);
+``mono3d_loss`` takes (H, W, c) maps, or (B, H, W, c) with one loss per
+image, each normalised by its own positives and centre cells.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -166,3 +172,71 @@ def decode_mono3d(preds: Dict[str, torch.Tensor], intrinsic: torch.Tensor,
     boxes = torch.stack([X, Y, z, dims[:, 0], dims[:, 1], dims[:, 2], yaw], dim=1)
     valid = torch.isfinite(scores) & (scores > 0.0) & (z > 0.1) & (z < 200.0)
     return boxes, torch.where(valid, scores, 0.0), labels, valid
+
+
+def make_mono3d_targets(cfg: Mono3DConfig, boxes_cam: np.ndarray,
+                        labels: np.ndarray, intrinsic: np.ndarray) -> dict:
+    """Ground-truth camera-frame boxes -> training target maps.
+
+    boxes_cam (K, 7) [x y z l w h yaw_cam]; Gaussian heatmap splats at the
+    projected centers + regression targets at the center cell.
+    """
+    H = cfg.image_hw[0] // cfg.stride
+    W = cfg.image_hw[1] // cfg.stride
+    heat = np.zeros((H, W, cfg.num_classes), np.float32)
+    offset = np.zeros((H, W, 2), np.float32)
+    depth = np.zeros((H, W, 1), np.float32)
+    dims = np.zeros((H, W, 3), np.float32)
+    rot = np.zeros((H, W, 2), np.float32)
+    mask = np.zeros((H, W), bool)
+
+    fx, fy = intrinsic[0, 0], intrinsic[1, 1]
+    cx0, cy0 = intrinsic[0, 2], intrinsic[1, 2]
+    for b, lab in zip(np.asarray(boxes_cam), np.asarray(labels)):
+        x, y, z, l, w, h, yaw = b
+        if z <= 0.1:
+            continue
+        u = (fx * x / z + cx0) / cfg.stride
+        v = (fy * y / z + cy0) / cfg.stride
+        ci, cj = int(v), int(u)
+        if not (0 <= ci < H and 0 <= cj < W):
+            continue
+        # Gaussian radius scaled by projected size
+        r = max(2, int(0.5 * fx * l / z / cfg.stride))
+        ys, xs = np.ogrid[-ci:H - ci, -cj:W - cj]
+        g = np.exp(-(xs * xs + ys * ys) / (2 * (r / 3.0) ** 2 + 1e-6))
+        heat[:, :, int(lab)] = np.maximum(heat[:, :, int(lab)], g)
+        offset[ci, cj] = [u - cj, v - ci]
+        depth[ci, cj, 0] = z
+        dims[ci, cj] = np.log(np.maximum([l, w, h], 1e-3))
+        alpha = yaw - np.arctan2(x, z)
+        rot[ci, cj] = [np.sin(alpha), np.cos(alpha)]
+        mask[ci, cj] = True
+    return dict(heat=heat, offset=offset, depth=depth, dims=dims, rot=rot,
+                mask=mask)
+
+
+def mono3d_loss(preds: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Focal heatmap loss + masked L1 regression losses over (H, W, c)
+    maps (``maps_hwc``), or (B, H, W, c) for one loss per image."""
+    hwc = (-3, -2, -1)
+    heat = torch.sigmoid(preds["heat"])
+    gt = targets["heat"]
+    pos = (gt > 0.999).float()
+    neg_w = torch.pow(1.0 - gt, 4.0)
+    eps = 1e-6
+    pos_loss = -torch.log(heat + eps) * torch.pow(1 - heat, 2.0) * pos
+    neg_loss = -torch.log(1 - heat + eps) * torch.pow(heat, 2.0) * neg_w * (1 - pos)
+    n_pos = torch.clamp(torch.sum(pos, hwc), min=1.0)
+    l_heat = (torch.sum(pos_loss, hwc) + torch.sum(neg_loss, hwc)) / n_pos
+
+    m = targets["mask"][..., None].float()
+    nm = torch.clamp(torch.sum(m, hwc), min=1.0)
+    l_off = torch.sum(torch.abs(torch.sigmoid(preds["offset"]) - targets["offset"]) * m, hwc) / nm
+    z_pred = 1.0 / torch.sigmoid(preds["depth"]) - 1.0
+    l_depth = torch.sum(torch.abs(z_pred - targets["depth"]) * m, hwc) / nm
+    l_dims = torch.sum(torch.abs(preds["dims"] - targets["dims"]) * m, hwc) / nm
+    l_rot = torch.sum(torch.abs(preds["rot"] - targets["rot"]) * m, hwc) / nm
+    total = l_heat + l_off + l_depth + 2.0 * l_dims + l_rot
+    return total, dict(heat=l_heat, offset=l_off, depth=l_depth, dims=l_dims, rot=l_rot)

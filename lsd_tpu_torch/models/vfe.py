@@ -15,7 +15,8 @@ The scatters return (H, W, C) images, the reference's layout; the
 detector views them as (1, C, H, W) in channels-last memory, which costs
 no copy.  ``dtype`` is the compute type (bf16 by default, as the
 reference's); parameters stay float32.  Norm statistics are taken in
-float32 and ``eps`` is flax's 1e-6.
+float32 (in float64 for a float64 twin, ``at_least_float32``) and ``eps``
+is flax's 1e-6.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ class PillarVFE(nn.Module):
         feats = torch.cat([voxels, f_cluster, f_center], dim=-1) * pmask
         w = self.linear
         x = F.linear(feats.to(self.dtype), w.weight.to(self.dtype)) + w.bias.to(self.dtype)
-        x = F.layer_norm(x.float(), x.shape[-1:], self.norm.weight, self.norm.bias,
+        x = F.layer_norm(at_least_float32(x), x.shape[-1:], self.norm.weight, self.norm.bias,
                          NORM_EPS).to(self.dtype)
         x = torch.relu(x)
         x = torch.where(pmask, x, -torch.inf)
@@ -154,7 +155,13 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, padding=0) -> t
                     padding) + conv.bias.to(dtype)[:, None, None]
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is if it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """GroupNorm with float32 statistics, the result in ``dtype``."""
-    return F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias,
+    """GroupNorm with float32 statistics (float64 for float64), the result in
+    ``dtype``."""
+    return F.group_norm(at_least_float32(x), norm.num_groups, norm.weight, norm.bias,
                         norm.eps).to(dtype)

@@ -47,7 +47,8 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv2d(self.Conv_0, _same_pad(x, 3, self.stride), torch.bfloat16)
         x = group_norm(self.GroupNorm_0, x, torch.bfloat16)
-        return (-x).exp_().add_(1.0).reciprocal_().mul_(x)
+        # out of place: autograd keeps exp's result for the backward
+        return torch.reciprocal(torch.exp(-x) + 1.0) * x
 
 
 class Yolo2D(nn.Module):

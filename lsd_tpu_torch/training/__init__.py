@@ -1,1 +1,2 @@
-from .data import SyntheticDetectionDataset, SyntheticSceneConfig
+from .data import LabeledFrameDataset, SyntheticDetectionDataset, SyntheticSceneConfig
+from .trainer import Trainer, TrainerConfig

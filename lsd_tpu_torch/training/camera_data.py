@@ -1,12 +1,14 @@
 """The camera models' synthetic scenes and their evaluations (numpy
 copies of ``lsd_tpu/training/mono3d.py:31-205, 264-335`` and
-``lsd_tpu/training/yolo.py:38-119, 229-265``; the trainers are not ported).
+``lsd_tpu/training/yolo.py:38-119, 229-265``); the trainers that use them
+are ``training/mono3d.py`` and ``training/yolo.py``.
 
 - ``SyntheticMono3DDataset``: shaded cuboids of the four classes on a
-  ground plane with exact camera-frame 3D labels.  The reference's batch
-  also carries the training target maps (``t_*``); they draw no random
-  numbers, so the port leaves them out and draws the same scenes from the
-  same seed.
+  ground plane with exact camera-frame 3D labels; each batch also carries
+  the training target maps ``t_heat``, ``t_offset``, ``t_depth``,
+  ``t_dims``, ``t_rot`` and ``t_mask`` (``models.mono3d.make_mono3d_targets``
+  at the scene's size with the default class count and stride), as the
+  reference's does.  The same seed gives the same batches in both packages.
 - ``SyntheticTrafficLightDataset``: stacked-lamp traffic lights among
   distractors, labels 0 red, 1 yellow, 2 green, 3 off.
 - ``mono3d_frames`` / ``mono3d_ap``: the reference's ``Mono3DTrainer.evaluate``
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..detection.eval import ap_2d
-from ..models.mono3d import decode_mono3d, maps_hwc
+from ..models.mono3d import Mono3DConfig, decode_mono3d, make_mono3d_targets, maps_hwc
 from ..models.yolo2d import decode_yolo2d, nms_2d
 from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 
@@ -194,12 +196,19 @@ class SyntheticMono3DDataset:
         gb = np.zeros((B, G, 7), np.float32)
         gl = np.zeros((B, G), np.int32)
         gm = np.zeros((B, G), bool)
+        mcfg = Mono3DConfig(image_hw=cfg.hw)
+        tg = {k: [] for k in ("heat", "offset", "depth", "dims", "rot", "mask")}
         for b in range(B):
             img, boxes, labels = self.scene()
             imgs[b] = img
             n = min(len(boxes), G)
             gb[b, :n], gl[b, :n], gm[b, :n] = boxes[:n], labels[:n], True
-        return dict(image=imgs, gt_boxes=gb, gt_labels=gl, gt_mask=gm)
+            t = make_mono3d_targets(mcfg, boxes[:n], labels[:n], self.K)
+            for k in tg:
+                tg[k].append(t[k])
+        out = dict(image=imgs, gt_boxes=gb, gt_labels=gl, gt_mask=gm)
+        out.update({"t_" + k: np.stack(v) for k, v in tg.items()})
+        return out
 
     def batches(self, n: int) -> Iterator[Dict[str, np.ndarray]]:
         for _ in range(n):

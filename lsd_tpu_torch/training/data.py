@@ -1,8 +1,13 @@
-"""Synthetic detection scenes (counterpart of ``lsd_tpu/training/data.py:25-45,
-91-238``): a numpy-only copy of ``pad_points``, ``pad_boxes``,
-``SyntheticSceneConfig`` and ``SyntheticDetectionDataset``.  The same seed
-gives byte-equal scenes in both packages; the port uses them as the data of
-its detection checks.  ``LabeledFrameDataset`` (recordings) is not ported.
+"""Detection training data (counterpart of ``lsd_tpu/training/data.py``): a
+numpy-only copy of ``pad_points``, ``pad_boxes``, ``LabeledFrameDataset``,
+``SyntheticSceneConfig`` and ``SyntheticDetectionDataset``.
+
+- ``LabeledFrameDataset``: annotated ``.pkl`` recordings (frames carrying
+  ``gt_boxes`` (G, 7) and ``gt_labels`` (G,)), read through the port's
+  ``io.player.FramePlayer``; its shuffle draws from the same seeded numpy
+  generator as the reference's, so both give the same batches.
+- ``SyntheticDetectionDataset``: procedural scenes; the same seed gives
+  byte-equal scenes in both packages.
 
 Batches are numpy: points (B, N, 4), mask (B, N), gt_boxes (B, G, 7),
 gt_labels (B, G), gt_mask (B, G).
@@ -34,6 +39,51 @@ def pad_boxes(boxes: np.ndarray, labels: np.ndarray, capacity: int):
     l[:len(labels)] = labels
     m[:len(boxes)] = True
     return b, l, m
+
+
+class LabeledFrameDataset:
+    """Batches over annotated recordings (.pkl frame dicts with gt_boxes/
+    gt_labels keys: the recorder format plus labels)."""
+
+    def __init__(self, data_path: str, point_capacity: int = 2 ** 17,
+                 box_capacity: int = 64, batch_size: int = 2,
+                 shuffle: bool = True, seed: int = 0):
+        from ..io.player import FramePlayer
+        self.player = FramePlayer(data_path)
+        self.point_capacity = point_capacity
+        self.box_capacity = box_capacity
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.indices = [i for i in range(len(self.player))
+                        if "gt_boxes" in self.player.read_dict(i)]
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def _one(self, i: int) -> Dict[str, np.ndarray]:
+        d = self.player.read_dict(i)
+        clouds = [np.asarray(p, np.float32).reshape(-1, 4)
+                  for p in (d.get("points") or {}).values()]
+        pts = (np.concatenate(clouds, axis=0) if clouds
+               else np.zeros((0, 4), np.float32))
+        P, M = pad_points(pts, self.point_capacity)
+        B, L, GM = pad_boxes(d.get("gt_boxes", np.zeros((0, 7))),
+                             d.get("gt_labels", np.zeros(0)),
+                             self.box_capacity)
+        return dict(points=P, mask=M, gt_boxes=B, gt_labels=L, gt_mask=GM)
+
+    def batches(self, epochs: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+        for _ in range(epochs):
+            order = np.asarray(self.indices)
+            if self.shuffle:
+                order = self.rng.permutation(order)
+            for s in range(0, len(order) - self.batch_size + 1,
+                           self.batch_size):
+                items = [self._one(int(i))
+                         for i in order[s:s + self.batch_size]]
+                yield {k: np.stack([it[k] for it in items])
+                       for k in items[0]}
 
 
 @dataclasses.dataclass

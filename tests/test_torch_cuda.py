@@ -48,6 +48,14 @@ like the model and decode inside ``Mono3DInfer``, makes no host sync
 ``quantized_matmul`` through ``torch._int_mm`` gives the CPU's int32
 accumulators, with M, K and N padded to what that call takes.
 
+Training: one step of each trainer at a small size from the same weights
+and batch, card against CPU: float32 gradients (the detector's twin,
+Mono3D) within 1e-3 of each leaf's largest magnitude, the bf16 Yolo2D's
+per leaf at cosine >= 0.999 and relative norm gap <= 0.05 (the conv
+biases that a GroupNorm follows aside: their gradient is rounding noise,
+``tests/test_torch_train_camera.py``); a whole step, upload included,
+makes no host sync.
+
 The runtime: two threads that reach the p2p kernel first at once build it
 once and both launch it right; ``SlamModule`` driven from a thread of its
 own gives the CPU's keyframes and GPS priors and poses within 0.02 m (the
@@ -874,3 +882,55 @@ def test_knn_mean_colors_on_card_matches_cpu(cuda, n_cloud, n_query):
     want = knn_mean_colors(cloud, rgb, q, device="cpu")
     got = knn_mean_colors(cloud, rgb, q, device=cuda)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def _small_trainer(model, dev):
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.models.mono3d import Mono3DConfig
+    from lsd_tpu_torch.models.yolo2d import Yolo2DConfig
+    from lsd_tpu_torch.training import camera_data as cd
+    from lsd_tpu_torch.training.data import SyntheticDetectionDataset, SyntheticSceneConfig
+    from lsd_tpu_torch.training.mono3d import Mono3DTrainer
+    from lsd_tpu_torch.training.trainer import Trainer
+    from lsd_tpu_torch.training.yolo import YoloTrainer
+    if model == "detector":
+        cfg = DetectorConfig.reference_capacity()._replace(
+            pc_range=(-25.6, -25.6, -3.0, 25.6, 25.6, 3.0), max_voxels=16384)
+        ds = SyntheticDetectionDataset(SyntheticSceneConfig(realistic=True, xy_range=24.0),
+                                       point_capacity=2 ** 14, batch_size=2, seed=1)
+        return Trainer(cfg, device=dev, dtype=torch.float32), ds
+    if model == "mono3d":
+        hw = (96, 160)
+        return (Mono3DTrainer(Mono3DConfig(image_hw=hw, base_ch=8), device=dev),
+                cd.SyntheticMono3DDataset(cd.Mono3DSceneConfig(hw=hw), batch_size=2, seed=1))
+    hw = (128, 160)
+    return (YoloTrainer(Yolo2DConfig(num_classes=4), hw=hw, device=dev),
+            cd.SyntheticTrafficLightDataset(cd.TrafficLightSceneConfig(hw=hw), batch_size=4,
+                                            seed=1))
+
+
+@pytest.mark.parametrize("model", ["detector", "mono3d", "yolo2d"])
+def test_training_step_on_card_matches_cpu_and_makes_no_sync(cuda, model):
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    cpu, ds = _small_trainer(model, "cpu")
+    card, _ = _small_trainer(model, cuda)
+    card.model.load_state_dict(cpu.model.state_dict())
+    batch = next(ds.batches(1))
+    grads = []
+    for tr in (cpu, card):
+        loss, _ = tr.loss_on_batch(tr.upload(batch))
+        loss.backward()
+        grads.append({n: p.grad.detach().cpu().double() for n, p in tr.model.named_parameters()})
+        tr.opt.zero_grad()
+    for n, want in grads[0].items():
+        got = grads[1][n]
+        if model != "yolo2d":
+            assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max()), n
+        elif not (n.startswith("ConvBlock") and n.endswith("Conv_0.bias")):
+            g, w = got.reshape(-1), want.reshape(-1)
+            assert float(g @ w / (g.norm() * w.norm())) >= 0.999, n
+            assert float((g - w).norm() / w.norm()) <= 0.05, n
+    card.train_step(card.upload(batch))
+    (loss, aux), sites = sync_sites(lambda: card.train_step(card.upload(batch)))
+    assert not sites, sites
+    assert loss.device == card.device and bool(torch.isfinite(loss))

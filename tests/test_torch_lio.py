@@ -215,7 +215,11 @@ def test_import_leaves_jax_out():
             "lsd_tpu_torch.proto.detection", "lsd_tpu_torch.proto.internal",
             "lsd_tpu_torch.io.player", "lsd_tpu_torch.io.recorder",
             "lsd_tpu_torch.sensors.ins_status", "lsd_tpu_torch.utils.system",
-            "lsd_tpu_torch.utils.network", "lsd_tpu_torch.tools.recording"} <= set(mods)
+            "lsd_tpu_torch.utils.network", "lsd_tpu_torch.tools.recording",
+            "lsd_tpu_torch.training.trainer", "lsd_tpu_torch.training.mono3d",
+            "lsd_tpu_torch.training.yolo", "lsd_tpu_torch.training.optim",
+            "lsd_tpu_torch.tools.train", "lsd_tpu_torch.tools.train_mono3d",
+            "lsd_tpu_torch.tools.train_yolo", "lsd_tpu_torch.convert"} <= set(mods)
     assert len(mods) > 50
     pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
     code = ("import sys; import lsd_tpu_torch, " + ", ".join(pkgs + mods) + "; "
@@ -249,10 +253,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from lsd_tpu_torch.ops.surfel import surfel_create
     from lsd_tpu_torch.slam.state import init_state
     from lsd_tpu_torch.utils.device import resolve_device
+    from lsd_tpu_torch.training.mono3d import Mono3DTrainer
+    from lsd_tpu_torch.training.trainer import Trainer
+    from lsd_tpu_torch.training.yolo import YoloTrainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: tlio.lio_init(TCFG), lambda: init_state(),
                  lambda: surfel_create(2 ** 10), resolve_device,
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"), Trainer, Mono3DTrainer, YoloTrainer):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -11,7 +11,8 @@ Tolerances:
 - ``_nms_heat``: the same peaks.  ``decode_mono3d``: the same valid slots,
   labels and cells; boxes within 1e-4 m (relative to 1 m) and scores
   within 1e-6.
-- The fusion and the synthetic scenes are numpy copies: equal results.
+- The fusion and the synthetic scenes are numpy copies: equal results,
+  the training target maps (``t_*``) of a batch included.
 - The evaluation over a tiny model's frames: the same AP dict as the
   reference's ``Mono3DTrainer.evaluate``.
 """
@@ -177,8 +178,9 @@ def test_scenes_match_jax():
                                         batch_size=2, seed=5).batch()
     got = tdata.SyntheticMono3DDataset(tdata.Mono3DSceneConfig(hw=hw, max_objects=3),
                                        batch_size=2, seed=5).batch()
-    assert set(got) == {k for k in ref if not k.startswith("t_")}
+    assert set(got) == set(ref) and "t_heat" in got
     for k, v in got.items():
+        assert v.dtype == ref[k].dtype, k
         np.testing.assert_array_equal(v, ref[k], err_msg=k)
     np.testing.assert_array_equal(tdata.default_intrinsic(hw), jtrain.default_intrinsic(hw))
 
