@@ -256,7 +256,7 @@ PIPE_TIMEOUT_S = 300
 # TRAIN_GRAD_RTOL or twice the CPU's distance of the leaf's largest
 # magnitude (the CPU's own float32 gradient of the detector's first block
 # lies 1.06e-2 of its largest magnitude from the float64 twin's at full width
-# in a card run, and 4.1e-2 of a bias's at the rehearsal's size); the
+# in a card run, and 4.1e-2 of the fourth block's at the rehearsal's size); the
 # optimizer's update from the same gradient within TRAIN_GRAD_RTOL; Yolo2D,
 # bf16 in both places, per leaf by cosine and relative norm gap (the CPU
 # parity bars of tests/test_torch_train_camera.py against the reference).  From a seeded
