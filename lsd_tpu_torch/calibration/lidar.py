@@ -1,14 +1,18 @@
-"""LiDAR self-calibration: the ground-plane fit.
+"""LiDAR self-calibration: ground plane + heading (counterpart of
+``lsd_tpu/calibration/lidar.py``).
 
-A copy of ``ransac_ground_plane`` from ``lsd_tpu/calibration/lidar.py``
-(numpy only): the mapper's floor prior needs it.  The rest of that module
-(ground and heading calibration) is not ported yet.
+Ground RANSAC estimates roll/pitch/z so the ground becomes z=0 (the
+mapper's floor prior uses the fit too); heading calibration takes the yaw
+of a straight-line drive.  Host numpy, apart from ``rot_between``, which
+runs in float32 torch on the CPU as the reference runs its own.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+from ..geometry import np_so3
 
 
 def ransac_ground_plane(points: np.ndarray, iters: int = 100,
@@ -46,3 +50,36 @@ def ransac_ground_plane(points: np.ndarray, iters: int = 100,
         best = (n, d)
         best_inliers = np.abs(pts @ n + d) < inlier_thresh
     return best[0], best[1], best_inliers
+
+
+def lidar_ground_calibration(points: np.ndarray,
+                             sensor_height_hint: Optional[float] = None
+                             ) -> Tuple[np.ndarray, dict]:
+    """Estimate the transform leveling the lidar to the ground.
+
+    Returns (T 4x4, info): applying T makes the detected ground plane z=0
+    with the lidar at its measured height.
+    """
+    import torch
+
+    # imported here: slam/mapper.py imports this module
+    from ..slam.imu import rot_between
+    n, d, inliers = ransac_ground_plane(points)
+    R = rot_between(torch.as_tensor(n, dtype=torch.float32),
+                    torch.tensor([0.0, 0.0, 1.0])).numpy()
+    height = float(d)  # distance of origin to plane along normal = |d| when |n|=1
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[2, 3] = height if sensor_height_hint is None else sensor_height_hint
+    rpy = np_so3.matrix_to_rpy(np.asarray(R, float))
+    return T, dict(normal=n, height=height, inlier_frac=float(inliers.mean()),
+                   roll=float(rpy[0]), pitch=float(rpy[1]))
+
+
+def heading_calibration(trajectory_xy: np.ndarray) -> float:
+    """Yaw offset between the sensor x-axis and driving direction, from a
+    straight-line drive.  Returns yaw (rad) to apply so that forward motion
+    is +x."""
+    xy = np.asarray(trajectory_xy, float).reshape(-1, 2)
+    d = xy[-1] - xy[0]
+    return float(np.arctan2(d[1], d[0]))

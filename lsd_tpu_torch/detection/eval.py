@@ -6,26 +6,29 @@
 - ``ap_2d``            the same over axis-aligned xyxy image boxes
                        (``:97-136``, the camera and traffic-light metric)
 - ``evaluate_frames``  per-class AP over a sequence of frames
+- ``evaluate_mot``     AB3DMOT-style MOTA/MOTP and their averages over 40
+                       score thresholds (``:172-246``)
 
 3D boxes are [x, y, z, dx, dy, dz, heading] rows; their IoU is the port's
-``ops/iou3d.boxes_iou3d``, taken on the CPU (the numbers are host data).
-The MOT metrics are not ported yet.
+``ops/iou3d.boxes_iou3d``, taken on the CPU (the numbers are host data)
+unless ``evaluate_mot`` is given another device.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..ops.iou3d import boxes_iou3d
+from ..utils.device import DeviceLike, resolve_device, to_device
 
 
-def _iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+def _iou_matrix(a: np.ndarray, b: np.ndarray, device: DeviceLike = "cpu") -> np.ndarray:
     if len(a) == 0 or len(b) == 0:
         return np.zeros((len(a), len(b)), np.float32)
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
-    return boxes_iou3d(f(a), f(b)).numpy()
+    dev = resolve_device(device)
+    f = lambda x: to_device(np.asarray(x, np.float32), dev)
+    return boxes_iou3d(f(a), f(b)).cpu().numpy()
 
 
 def _iou2d_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -130,3 +133,84 @@ def evaluate_frames(frames: Sequence[Dict], iou_thresh: Dict[int, float]
             else iou_thresh
         out[int(lbl)] = ap_3d(pb, ps, gb, iou_thresh=t)
     return out
+
+
+# ---------------------------------------------------------------------------
+# MOT metrics (AB3DMOT protocol)
+
+
+def _mot_once(frames: Sequence[Dict], score_thresh: float,
+              iou_gate: float, device: DeviceLike = "cpu") -> Dict[str, float]:
+    """One MOTA/MOTP pass at a track-score threshold.
+
+    frames: {track_ids, boxes, scores, gt_ids, gt_boxes} per frame.
+    """
+    n_gt = 0
+    misses = 0
+    false_pos = 0
+    id_switches = 0
+    tp = 0
+    iou_sum = 0.0
+    last_match: Dict[int, int] = {}             # gt id -> track id
+    for f in frames:
+        gt_ids = np.asarray(f.get("gt_ids", []), np.int64).reshape(-1)
+        gt_boxes = np.asarray(f.get("gt_boxes", np.zeros((0, 7)))).reshape(-1, 7)
+        tids = np.asarray(f.get("track_ids", []), np.int64).reshape(-1)
+        boxes = np.asarray(f.get("boxes", np.zeros((0, 7)))).reshape(-1, 7)
+        scores = np.asarray(f.get("scores", np.ones(len(tids)))).reshape(-1)
+        keep = scores >= score_thresh
+        tids, boxes = tids[keep], boxes[keep]
+        n_gt += len(gt_ids)
+        iou = _iou_matrix(gt_boxes, boxes, device)
+        # greedy matching, as the reference (AB3DMOT uses Hungarian; greedy
+        # at an IoU gate is equivalent for well-separated objects)
+        matched_g = np.zeros(len(gt_ids), bool)
+        matched_t = np.zeros(len(tids), bool)
+        pairs = []
+        if iou.size:
+            order = np.dstack(np.unravel_index(
+                np.argsort(-iou, axis=None), iou.shape))[0]
+            for g, t in order:
+                if iou[g, t] < iou_gate:
+                    break
+                if matched_g[g] or matched_t[t]:
+                    continue
+                matched_g[g] = matched_t[t] = True
+                pairs.append((int(gt_ids[g]), int(tids[t]),
+                              float(iou[g, t])))
+        for gid, tid, v in pairs:
+            tp += 1
+            iou_sum += v
+            if gid in last_match and last_match[gid] != tid:
+                id_switches += 1
+            last_match[gid] = tid
+        misses += int((~matched_g).sum())
+        false_pos += int((~matched_t).sum())
+    mota = 1.0 - (misses + false_pos + id_switches) / max(n_gt, 1)
+    motp = iou_sum / max(tp, 1)
+    recall = tp / max(n_gt, 1)
+    return dict(mota=mota, motp=motp, recall=recall, ids=id_switches,
+                misses=misses, false_pos=false_pos, n_gt=n_gt, tp=tp)
+
+
+def evaluate_mot(frames: Sequence[Dict], iou_gate: float = 0.5,
+                 n_recall_steps: int = 40, device: DeviceLike = "cpu") -> Dict[str, float]:
+    """AB3DMOT-style summary: sweep score thresholds over the recall
+    range, average MOTA (clamped at 0, scaled by recall — the sAMOTA
+    variant simplification) and MOTP.  The IoUs are taken on ``device``."""
+    base = _mot_once(frames, score_thresh=-np.inf, iou_gate=iou_gate, device=device)
+    scores = np.concatenate([np.asarray(f.get("scores",
+                                              np.ones(len(f.get("track_ids", [])))),
+                                        np.float32).reshape(-1)
+                             for f in frames]) if frames else np.zeros(0)
+    if not len(scores):
+        return dict(amota=0.0, amotp=0.0, **base)
+    thresholds = np.quantile(scores, np.linspace(0.0, 1.0, n_recall_steps,
+                                                 endpoint=False))
+    motas, motps = [], []
+    for t in thresholds:
+        m = _mot_once(frames, score_thresh=float(t), iou_gate=iou_gate, device=device)
+        motas.append(max(m["mota"], 0.0))
+        motps.append(m["motp"])
+    return dict(amota=float(np.mean(motas)), amotp=float(np.mean(motps)),
+                **base)

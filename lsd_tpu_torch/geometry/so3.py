@@ -64,6 +64,38 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     return rotvec_from_quat(matrix_to_quat(R))
 
 
+def left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian of SO(3): J_l(w) such that exp(w + dw) ~ exp(J_l dw) exp(w)."""
+    theta = _safe_norm(w)[..., None]
+    W = hat(w)
+    t2 = theta * theta
+    a = _cosc(theta)  # (1-cos)/t^2
+    # (t - sin t)/t^3, safe at 0
+    small = torch.abs(theta) < 1e-4
+    b = torch.where(small, 1.0 / 6.0 - t2 / 120.0,
+                    (theta - torch.sin(theta))
+                    / torch.where(small, torch.ones_like(t2), t2 * theta))
+    return _eye3(w) + a * W + b * (W @ W)
+
+
+def inv_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3)."""
+    theta = _safe_norm(w)[..., None]
+    W = hat(w)
+    t2 = theta * theta
+    one = torch.ones_like(theta)
+    # 1/t^2 - (1+cos t)/(2 t sin t), with series 1/12 + t^2/720 near 0
+    small = torch.abs(theta) < 1e-4
+    cot_term = torch.where(
+        small,
+        1.0 / 12.0 + t2 / 720.0,
+        (1.0 / torch.where(small, one, t2))
+        - (1.0 + torch.cos(theta))
+        / torch.where(small, one, 2.0 * theta * torch.sin(theta)),
+    )
+    return _eye3(w) - 0.5 * W + cot_term * (W @ W)
+
+
 # ----------------------------- quaternions (w, x, y, z) ---------------------
 
 
@@ -164,3 +196,29 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     w1 = torch.sin(t * theta) / torch.clamp(sin_theta, min=_EPS)
     out = torch.where(sin_theta < 1e-6, lin, w0 * q0 + w1 * q1)
     return quat_normalize(out)
+
+
+# ----------------------------- Euler (roll, pitch, yaw) ---------------------
+# R = Rz(yaw) @ Ry(pitch) @ Rx(roll), angles in radians (the reference's INS
+# frame convention).
+
+
+def rpy_to_matrix(rpy: torch.Tensor) -> torch.Tensor:
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+        torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+    ], dim=-2)
+
+
+def matrix_to_rpy(R: torch.Tensor) -> torch.Tensor:
+    sy = -R[..., 2, 0]
+    cy = torch.sqrt(torch.clamp(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2, min=1e-12))
+    pitch = torch.atan2(sy, cy)
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)

@@ -5,6 +5,10 @@
   ``{"q": int8, "scale": float32[c_out]}``, symmetric per output channel
   (the last axis), rounded half to even as ``np.round`` and ``jnp.round``
   round; biases and norm parameters stay float32.
+- ``dequantize_params`` (``params_io``'s, which this module exports as the
+  reference's does) turns such leaves back into ``q * scale``;
+  ``quantize_params`` followed by it is the int8 column of
+  ``tools/eval_detection.py``.
 - ``save_quantized`` writes the tree behind the magic ``LSDQ8001`` with the
   port's own msgpack writer; ``params_io.load_params`` reads either form
   back, quantized leaves as ``q * scale``.

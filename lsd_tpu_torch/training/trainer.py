@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -154,9 +154,12 @@ class Trainer(StepTrainer):
         return dict(steps=self.step, final_loss=final, history=history)
 
     @torch.inference_mode()
-    def evaluate(self, batches, score_thresh: float = 0.3, iou_thresh: float = 0.5) -> Dict:
+    def evaluate(self, batches, score_thresh: float = 0.3,
+                 iou_thresh: Union[float, Dict[int, float]] = 0.5) -> Dict:
         """AP through the deployment decode + NMS path, and the freespace
-        head's IoU against the geometric drivable-area labels."""
+        head's IoU against the geometric drivable-area labels.
+        ``iou_thresh`` is one gate or one per class label (a class it does
+        not name is gated at 0.7, as ``evaluate_frames`` does)."""
         cfg, model, dev = self.det_cfg, self.model, self.device
         post_cfg = PostProcessConfig(score_thresh=(score_thresh,) * cfg.num_classes)
         frames = []

@@ -61,6 +61,14 @@ once and both launch it right; ``SlamModule`` driven from a thread of its
 own gives the CPU's keyframes and GPS priors and poses within 0.02 m (the
 ``Localizer`` bar above); ``knn_mean_colors`` within 1e-5 of the colours'
 range (TF32 off on both).
+
+The scoring path: the simulators' scans reach the card unchanged (a copy
+there and back is byte-equal); ``evaluate_mot`` with its IoUs on the card
+(within the IoU bar above) equals the CPU's in its integer fields and
+within 1e-5 in its float fields;
+``tools.evaluate.run_tpu_lio`` with no device argument runs on the card and
+launches the p2p kernel ``max_iters`` (4) times per scan; without a card,
+``tools.evaluate``'s runner and CLI raise instead of running on the CPU.
 """
 import numpy as np
 import pytest
@@ -934,3 +942,58 @@ def test_training_step_on_card_matches_cpu_and_makes_no_sync(cuda, model):
     (loss, aux), sites = sync_sites(lambda: card.train_step(card.upload(batch)))
     assert not sites, sites
     assert loss.device == card.device and bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("world", ["corridor", "fig8", "route"])
+def test_sim_scans_reach_the_card_unchanged(cuda, world):
+    from lsd_tpu_torch import sim
+    cfg = sim.SimConfig(radius=8.0, n_scans=3, points_per_scan=4096, point_noise=0.01, seed=7,
+                        rest_time=0.1, ramp_time=0.1)
+    s = {"corridor": lambda: sim.CorridorSim(cfg),
+         "fig8": lambda: sim.FigureEightSim(cfg, laps=0.2, gps_outlier_rate=0.3),
+         "route": lambda: sim.RouteSim(cfg, laps=0.2)}[world]()
+    for scan in s.generate(capacity=4096, imu_capacity=16):
+        for a in scan:
+            back = torch.as_tensor(a).to(cuda).cpu().numpy()
+            assert back.dtype == a.dtype and back.tobytes() == a.tobytes()
+
+
+def test_evaluate_mot_iou_on_card_equals_cpu(cuda):
+    from lsd_tpu_torch.detection.eval import _iou_matrix, evaluate_mot
+    rng = np.random.default_rng(3)
+    frames = []
+    for k in range(12):
+        gt = np.concatenate([rng.uniform(-30, 30, (6, 2)) + 0.2 * k, np.zeros((6, 1)),
+                             rng.uniform(1, 5, (6, 3)), rng.uniform(-3, 3, (6, 1))], axis=1)
+        boxes = gt + rng.normal(0, 0.2, gt.shape) * [1, 1, 0, 0.2, 0.2, 0.2, 0.1]
+        frames.append(dict(gt_ids=np.arange(6), gt_boxes=gt, track_ids=np.arange(6) + (k > 6),
+                           boxes=boxes, scores=rng.random(6)))
+    a, b = frames[0]["gt_boxes"], frames[0]["boxes"]
+    np.testing.assert_allclose(_iou_matrix(a, b, cuda), _iou_matrix(a, b), rtol=1e-5, atol=1e-5)
+    got, want = evaluate_mot(frames, device=cuda), evaluate_mot(frames)
+    for k in ("ids", "misses", "false_pos", "n_gt", "tp"):
+        assert got[k] == want[k]
+    for k in ("amota", "amotp", "mota", "motp"):
+        assert abs(got[k] - want[k]) <= 1e-5
+
+
+def test_run_tpu_lio_runs_on_the_card_by_default(cuda):
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.sim import CorridorSim, SimConfig
+    from lsd_tpu_torch.tools.evaluate import run_tpu_lio
+    sim = CorridorSim(SimConfig(n_scans=12, points_per_scan=8192, point_noise=0.01, seed=5,
+                                rest_time=0.3, ramp_time=0.3))
+    data = sim.generate(capacity=8192, imu_capacity=16)
+    p2p_reduce.launches = 0
+    ate, ms, _ = run_tpu_lio(sim, data, 4)
+    assert p2p_reduce.launches == 4 * len(data)
+    assert np.isfinite(ate) and ate < 0.1 and ms > 0
+
+
+def test_evaluate_raises_without_a_card(cuda, monkeypatch):
+    from lsd_tpu_torch.tools import evaluate
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--skip-reference", "--scans", "30"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.run_tpu_lio(None, [], 0)

@@ -1,9 +1,11 @@
 """Port parity: geometry/so3, geometry/se3 and slam/state of lsd_tpu_torch
 against lsd_tpu on the CPU.
 
-Inputs are made with numpy from a seed and handed to both packages.
-Tolerance: rtol 1e-5 (float32 rounding of two implementations of the same
-formulas), with atol 1e-6 for entries that are zero in exact arithmetic.
+Inputs are made with numpy from a seed and handed to both packages, with
+rotation angles at 0, on both sides of the small-angle branches (1e-5,
+1e-4) and within 1e-3 of pi.  Tolerance: rtol 1e-5 (float32 rounding of two
+implementations of the same formulas), with atol 1e-6 for entries that are
+zero in exact arithmetic.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,35 @@ def _rotvecs(n=64, seed=0):
     w = rng.normal(size=(n, 3)) * rng.choice([1e-7, 1e-3, 0.5, 2.5], size=(n, 1))
     w[0] = 0.0
     return w.astype(np.float32)
+
+
+def _rotvecs_edges(n=64, seed=9):
+    """Rotation vectors whose angles sit at 0, on both sides of the
+    small-angle branches and near pi, then random ones."""
+    rng = _rng(seed)
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    edges = [0.0, 1e-7, 0.9e-5, 1.1e-5, 0.9e-4, 1.1e-4, 1e-2,
+             np.pi - 1e-2, np.pi - 1e-3, np.pi - 1e-4]
+    angles = np.concatenate([edges, rng.uniform(0.0, np.pi, n - len(edges))])
+    return (axes * angles[:, None]).astype(np.float32)
+
+
+def _rpys(n=64, seed=10):
+    rpy = _rng(seed).uniform(-np.pi, np.pi, size=(n, 3))
+    rpy[:, 1] /= 2.0                      # pitch in (-pi/2, pi/2)
+    rpy[0] = 0.0
+    rpy[1] = [1e-6, -1e-6, np.pi - 1e-3]  # yaw near pi
+    rpy[2] = [np.pi - 1e-3, 0.3, -0.2]    # roll near pi
+    return rpy.astype(np.float32)
+
+
+def _poses(n=64, seed=11):
+    R = np.array(jso3.exp_so3(jnp.asarray(_rotvecs_edges(n, seed))))
+    T = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    T[:, :3, :3] = R
+    T[:, :3, 3] = _rng(seed).normal(size=(n, 3)) * 5
+    return T
 
 
 def _quats(n=64, seed=1):
@@ -68,12 +99,59 @@ CASES = {
     "matrix_to_quat": lambda: (_rotations(),),
     "quat_rotate": lambda: (_quats() / np.linalg.norm(_quats(), axis=1, keepdims=True),
                             _rng(4).normal(size=(64, 3)).astype(np.float32) * 20),
+    "left_jacobian": lambda: (_rotvecs_edges(),),
+    "inv_left_jacobian": lambda: (_rotvecs_edges(),),
+    "rpy_to_matrix": lambda: (_rpys(),),
+    "matrix_to_rpy": lambda: (np.array(jso3.rpy_to_matrix(jnp.asarray(_rpys()))),),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_so3_matches_reference(name):
     j, t = _both(name, *CASES[name]())
+    _close(j, t)
+
+
+@pytest.mark.parametrize("name", ["exp_so3", "left_jacobian", "inv_left_jacobian"])
+def test_so3_gradients_finite_at_small_and_large_angles(name):
+    """``torch.where`` differentiates both branches: the unused one must not
+    put a NaN into the gradient, at 0 above all."""
+    w = torch.as_tensor(_rotvecs_edges()).requires_grad_(True)
+    getattr(tso3, name)(w).sum().backward()
+    assert bool(torch.isfinite(w.grad).all())
+
+
+def test_jacobians_invert_each_other():
+    w = torch.as_tensor(_rotvecs_edges())
+    eye = torch.eye(3).expand(len(w), 3, 3)
+    np.testing.assert_allclose((tso3.left_jacobian(w) @ tso3.inv_left_jacobian(w)).numpy(),
+                               eye.numpy(), atol=2e-3)
+
+
+SE3_CASES = {
+    "rotation": lambda: (_poses(),),
+    "translation": lambda: (_poses(),),
+    "compose": lambda: (_poses(seed=11), _poses(seed=12)),
+    "inverse": lambda: (_poses(),),
+    "exp_se3": lambda: (np.concatenate(
+        [_rng(13).normal(size=(64, 3)).astype(np.float32), _rotvecs_edges()], axis=1),),
+    "log_se3": lambda: (_poses(),),
+    "transform_points": lambda: (_poses()[3], _rng(14).normal(size=(100, 3)).astype(np.float32) * 20),
+    "relative_pose": lambda: (_poses(seed=11), _poses(seed=12)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SE3_CASES))
+def test_se3_matches_reference(name):
+    j, t = _both(name, *SE3_CASES[name](), mod=(jse3, tse3))
+    _close(j, t)
+
+
+@pytest.mark.parametrize("a", [0.0, 0.3, 1.0])
+def test_pose_interp_matches_reference(a):
+    T0, T1 = _poses(seed=15), _poses(seed=16)
+    j = jse3.pose_interp(jnp.asarray(T0), jnp.asarray(T1), a)
+    t = tse3.pose_interp(torch.as_tensor(T0), torch.as_tensor(T1), a)
     _close(j, t)
 
 

@@ -219,7 +219,12 @@ def test_import_leaves_jax_out():
             "lsd_tpu_torch.training.trainer", "lsd_tpu_torch.training.mono3d",
             "lsd_tpu_torch.training.yolo", "lsd_tpu_torch.training.optim",
             "lsd_tpu_torch.tools.train", "lsd_tpu_torch.tools.train_mono3d",
-            "lsd_tpu_torch.tools.train_yolo", "lsd_tpu_torch.convert"} <= set(mods)
+            "lsd_tpu_torch.tools.train_yolo", "lsd_tpu_torch.convert",
+            "lsd_tpu_torch.sim", "lsd_tpu_torch.tools.evaluate", "lsd_tpu_torch.tools.loc_eval",
+            "lsd_tpu_torch.tools.eval_detection", "lsd_tpu_torch.tools.campaign",
+            "lsd_tpu_torch.tools.campaign_session", "lsd_tpu_torch.tools.export_replay",
+            "lsd_tpu_torch.calibration.lidar", "lsd_tpu_torch.calibration.trajectory",
+            "lsd_tpu_torch.calibration.camera"} <= set(mods)
     assert len(mods) > 50
     pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
     code = ("import sys; import lsd_tpu_torch, " + ", ".join(pkgs + mods) + "; "
@@ -256,10 +261,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from lsd_tpu_torch.training.mono3d import Mono3DTrainer
     from lsd_tpu_torch.training.trainer import Trainer
     from lsd_tpu_torch.training.yolo import YoloTrainer
+    from lsd_tpu_torch.tools import eval_detection, evaluate, loc_eval
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: tlio.lio_init(TCFG), lambda: init_state(),
                  lambda: surfel_create(2 ** 10), resolve_device,
-                 lambda: resolve_device("cuda"), Trainer, Mono3DTrainer, YoloTrainer):
+                 lambda: resolve_device("cuda"), Trainer, Mono3DTrainer, YoloTrainer,
+                 lambda: evaluate.main(["--skip-reference"]),
+                 lambda: evaluate.run_tpu_lio(None, [], 0),
+                 lambda: loc_eval.main(["--map", "no_map", "--build-map"]),
+                 lambda: eval_detection.main([]),
+                 lambda: eval_detection.evaluate_weights("no_weights")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

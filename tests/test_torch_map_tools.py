@@ -3,7 +3,9 @@
 ``texture_mesh``) and ``slam/map_merge.py`` (``find_cross_edges``,
 ``merge_maps``).
 
-- ``colorize_cloud``: equal (numpy in both).  ``knn_mean_colors``: within
+- ``colorize_cloud``: equal (numpy in both); ``colorize_map`` (``cv2``'s
+  JPEG decode in both) within one colour level; ``export_colmap``: the same
+  files, byte for byte.  ``knn_mean_colors``: within
   1e-5 of the reference's largest colour, and ``texture_mesh`` (through the
   ``slam.texture_mesh`` interface) the same PLY bytes.
 - ``merge_maps`` on ``tests/test_map_merge.py``'s two sessions (mapped once,
@@ -54,6 +56,48 @@ def test_colorize_cloud():
     T[:3, 3] = [0.1, -0.2, 0.3]
     a, b = jrender.colorize_cloud(pts, img, K, T), trender.colorize_cloud(pts, img, K, T)
     assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and b[1].sum() > 100
+
+
+def _jpeg_keyframes():
+    import cv2
+    from lsd_tpu_torch.slam.keyframe import Keyframe
+    rng = np.random.default_rng(9)
+    kfs = []
+    for k in range(4):
+        pose = np.eye(4)
+        c, sn = np.cos(0.2 * k), np.sin(0.2 * k)
+        pose[:2, :2] = [[c, -sn], [sn, c]]
+        pose[:2, 3] = [2.0 * k, 0.5 * k]
+        cloud = (rng.normal(size=(400, 4)) * [4, 4, 2, 1] + [0, 0, 8, 0]).astype(np.float32)
+        ok, jpg = cv2.imencode(".jpg", rng.integers(0, 256, (240, 320, 3), np.uint8))
+        images = {"front": jpg.tobytes()} if k != 2 else {}      # one keyframe without
+        kfs.append(Keyframe(id=k, stamp_us=1_000_000 + k, pose=pose, odom=pose, cloud=cloud,
+                            images=images))
+    return kfs
+
+
+def test_colorize_map():
+    kfs, T = _jpeg_keyframes(), np.eye(4)
+    a = jrender.colorize_map(kfs, K, T, max_points=300)
+    b = trender.colorize_map(kfs, K, T, max_points=300)
+    assert a.shape == b.shape == (300, 6) and b.dtype == np.float32
+    np.testing.assert_array_equal(b[:, :3], a[:, :3])
+    assert np.abs(b[:, 3:] - a[:, 3:]).max() <= 1 / 255
+    assert trender.colorize_map(kfs[2:3], K, T).shape == (0, 6)
+
+
+def test_export_colmap(tmp_path):
+    kfs, T = _jpeg_keyframes(), np.eye(4)
+    T[:3, 3] = [0.1, 0.0, -0.2]
+    pts = np.random.default_rng(10).random((50, 6))
+    for mod, out in ((jrender, tmp_path / "jax"), (trender, tmp_path / "port")):
+        mod.export_colmap(str(out), kfs, K, T, (320, 240), map_points=pts)
+    names = sorted(str(p.relative_to(tmp_path / "jax")) for p in (tmp_path / "jax").rglob("*")
+                   if p.is_file())
+    assert names == ["cameras.txt", "images.txt", "images/000000.jpg", "images/000001.jpg",
+                     "images/000003.jpg", "points3D.txt"]
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
 
 
 @pytest.mark.parametrize("n_cloud,n_query,k,q_chunk,c_chunk",
