@@ -8,3 +8,5 @@ nothing from ``lsd_tpu``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request they raise (``utils/device.py``).
 """
+
+__version__ = "0.1.0"

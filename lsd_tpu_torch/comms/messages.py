@@ -1,18 +1,16 @@
-"""ROS-like typed messages for the bus (ZCM type system replacement): the
-part of ``lsd_tpu/comms/messages.py`` that ``SlamModule`` publishes, copied
-for the port.
+"""ROS-like typed messages for the bus (ZCM type system replacement)
+(a copy of ``lsd_tpu/comms/messages.py`` for the port).
 
 The reference generates a ROS-compatible type system from .zcm definitions
 (sensor_driver/common_lib/logging/message/*.zcm: std_msgs, geometry_msgs,
 nav_msgs, sensor_msgs).  Here the same message shapes are schema dicts over
 our protobuf wire codec (proto/wire.py) — compact, versionless, and
 decodable by trial like the reference's TViz sniffing
-(web_backend/message_server.py:204-214).  ``imu_msg``, ``pointcloud_msg``
-and ``sniff_type`` wait for the online sources and the message server.
+(web_backend/message_server.py:204-214).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -53,6 +51,20 @@ def decode_typed(data: bytes) -> Tuple[str, Dict]:
     return name, decode_message(TYPES[name], data[1:])
 
 
+def sniff_type(data: bytes) -> Optional[str]:
+    if not data:
+        return None
+    tag = data[0]
+    names = list(TYPES)
+    if tag >= len(names):
+        return None
+    try:
+        decode_message(TYPES[names[tag]], data[1:])
+        return names[tag]
+    except Exception:
+        return None
+
+
 # convenience builders -------------------------------------------------------
 
 def _np_matrix_to_quat(R: np.ndarray) -> np.ndarray:
@@ -88,3 +100,19 @@ def odometry_msg(stamp_us: int, T: np.ndarray, vel=None, frame_id: str = "map") 
                   orientation=dict(w=q[0], x=q[1], y=q[2], z=q[3])),
         twist=dict(linear=dict(x=v[0], y=v[1], z=v[2]),
                    angular=dict(x=0.0, y=0.0, z=0.0))))
+
+
+def imu_msg(stamp_us: int, gyro, accel) -> bytes:
+    g, a = np.asarray(gyro, float), np.asarray(accel, float)
+    return encode_typed("Imu", dict(
+        header=dict(seq=0, stamp_us=int(stamp_us), frame_id="imu"),
+        orientation=dict(w=1.0, x=0.0, y=0.0, z=0.0),
+        angular_velocity=dict(x=g[0], y=g[1], z=g[2]),
+        linear_acceleration=dict(x=a[0], y=a[1], z=a[2])))
+
+
+def pointcloud_msg(stamp_us: int, points: np.ndarray, frame_id: str = "lidar") -> bytes:
+    pts = np.asarray(points, np.float32).reshape(-1, points.shape[-1])[:, :4]
+    return encode_typed("PointCloud", dict(
+        header=dict(seq=0, stamp_us=int(stamp_us), frame_id=frame_id),
+        num_points=len(pts), data=pts.tobytes()))

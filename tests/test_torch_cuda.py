@@ -69,6 +69,11 @@ within 1e-5 in its float fields;
 ``tools.evaluate.run_tpu_lio`` with no device argument runs on the card and
 launches the p2p kernel ``max_iters`` (4) times per scan; without a card,
 ``tools.evaluate``'s runner and CLI raise instead of running on the CPU.
+
+The online system: frames that the online source captured from live UDP
+traffic through ``SlamModule`` on the card and on the CPU, poses within
+0.02 m; ``run``'s ``start_system`` with no device puts ``Perception`` and
+its SLAM stage on the card and answers ``/v1/status``.
 """
 import numpy as np
 import pytest
@@ -997,3 +1002,136 @@ def test_evaluate_raises_without_a_card(cuda, monkeypatch):
         evaluate.main(["--skip-reference", "--scans", "30"])
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.run_tpu_lio(None, [], 0)
+
+
+def _online_frames(n, points, tmp_path):
+    """Frames of the online source: ``n`` scans of the 8 m ring (seed 21)
+    streamed as Custom datagrams through ``SourceManager`` in online mode,
+    with GPCHC fixes stamped in GPS time (so no IMU row), as phase 13 of
+    ``chip_smoke.py`` sends them."""
+    import socket
+    import struct
+    import threading
+    import time
+    from lsd_tpu_torch.io.gpchc import format_gpchc
+    from lsd_tpu_torch.runtime.config import ConfigManager
+    from lsd_tpu_torch.runtime.source_manager import SourceManager
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.tools.recording import fix_projector, truth_fix
+    sim = CircleSim(SimConfig(radius=8.0, omega=0.8, n_scans=n, points_per_scan=points,
+                              point_noise=0.01, seed=21))
+    data = sim.generate(capacity=points, imu_capacity=16)
+    proj, p0 = fix_projector(), sim.pose(0.0)[1]
+    ports = []
+    for _ in range(2):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    cfg = ConfigManager().config
+    cfg["input"].update(mode="online", scan_hz=10.0)
+    cfg["lidar"] = [dict(name="0-Custom", port=ports[0], decoder="Custom", range_min=0.0)]
+    cfg["ins"].update(use=True, port=ports[1])
+    src = SourceManager(cfg)
+    src.setup(cfg)
+
+    def send():
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        t0 = time.perf_counter() + 0.15
+        for k, scan in enumerate(data):
+            for j in range(10):
+                time.sleep(max(0.0, t0 + k / 10 + j / 100 - time.perf_counter()))
+                tx.sendto(format_gpchc(truth_fix(sim, k / 10 + j / 100,
+                                                 1_700_000_000_000_000 + (k * 10 + j) * 10_000,
+                                                 proj, p0)).encode(), ("127.0.0.1", ports[1]))
+                if j == 0:
+                    pts = np.concatenate([scan[0], np.zeros((points, 1), np.float32)], axis=1)
+                    tx.sendto(struct.pack("<IIQ", 0x4C53444C, points, k) + pts.tobytes(),
+                              ("127.0.0.1", ports[0]))
+        tx.close()
+    frames = []
+    sender = threading.Thread(target=send, daemon=True)
+    try:
+        sender.start()
+        deadline = time.time() + n / 10 + 5
+        while time.time() < deadline and \
+                sum(len(f["points"]["0-Custom"]) for f in frames) < n * points:
+            d = src.get_data()
+            if d is not None:
+                frames.append(d)
+    finally:
+        sender.join(5)
+        src.release()
+    assert sum(len(f["points"]["0-Custom"]) for f in frames) == n * points
+    return sim, frames
+
+
+def test_online_frames_slam_module_on_card_matches_cpu(cuda, tmp_path):
+    """Frames captured live by the online source (10 scans of 4,000 points,
+    each one Custom datagram,
+    no IMU row) through ``SlamModule`` on the card and on the CPU (mapping,
+    graph work and fetch synchronous, the LIO seeded at the simulator's
+    start): poses within 0.02 m (the ``SlamModule`` bar above), three p2p
+    launches a frame on the card."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.runtime import clear_interfaces
+    from lsd_tpu_torch.runtime.config import ConfigManager
+    from lsd_tpu_torch.runtime.modules import SlamModule
+    from lsd_tpu_torch.slam.lio import lio_init
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    sim, frames = _online_frames(10, 4000, tmp_path)
+    assert all(len(f["imu_data"]) == 0 for f in frames)
+    poses = {}
+    for dev in ("cpu", cuda):
+        clear_interfaces()
+        cfg = ConfigManager().config
+        cfg.input.mode = "online"
+        cfg.slam.update(resolution=0.4, key_frames_interval=[1.5, 0.3], async_graph=False,
+                        async_fetch=False)
+        m = SlamModule(cfg, device=dev)
+        m.setup(cfg)
+        m.engine.lio_state = lio_init(m.engine.cfg.lio, nav_at_start(sim, dev))
+        before = p2p_reduce.launches
+        poses[str(dev)] = np.stack([m.process(dict(f))["slam_pose"].copy() for f in frames])
+        if dev != "cpu":
+            assert p2p_reduce.launches - before == 3 * len(frames)
+        m.release()
+        clear_interfaces()
+    assert np.isfinite(poses["cuda:0"]).all()
+    np.testing.assert_allclose(poses["cuda:0"], poses["cpu"], rtol=0, atol=0.02)
+
+
+def test_run_server_on_card_answers_status(cuda, tmp_path):
+    """What ``python -m lsd_tpu_torch run`` starts (``start_system``), with
+    no ``--device``: ``Perception`` on the card over a recording through
+    Source -> SLAM -> Sink, the web API on port 0 answering ``/v1/status``
+    and serving the UI, the SLAM stage on the card."""
+    import json
+    import time
+    import urllib.request
+    from lsd_tpu_torch.__main__ import start_system, stop_system
+    from lsd_tpu_torch.runtime import clear_interfaces
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.tools.recording import write_recording
+    sim = CircleSim(SimConfig(radius=8.0, omega=0.8, n_scans=6, points_per_scan=2048, seed=3))
+    rec = write_recording(str(tmp_path / "rec"), sim, sim.generate(capacity=2048, imu_capacity=16))
+    clear_interfaces()
+    p, srv, upgrade, port = start_system(data=rec, host="127.0.0.1", port=0)
+    try:
+        assert p.device.type == "cuda"
+        assert p.module_manager.modules["SLAM"].device.type == "cuda"
+        deadline = time.time() + 120
+        status = {}
+        while time.time() < deadline:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/status", data=b"{}")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                status = json.loads(r.read())
+            if status["modules"]["SLAM"]["frames"] >= 6:
+                break
+            time.sleep(0.2)
+        assert status["status"] == "Running" and status["modules"]["SLAM"]["frames"] >= 6
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10) as r:
+            assert b"<!DOCTYPE html>" in r.read()
+    finally:
+        stop_system(p, srv, upgrade)
+        clear_interfaces()

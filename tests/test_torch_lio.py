@@ -224,10 +224,20 @@ def test_import_leaves_jax_out():
             "lsd_tpu_torch.tools.eval_detection", "lsd_tpu_torch.tools.campaign",
             "lsd_tpu_torch.tools.campaign_session", "lsd_tpu_torch.tools.export_replay",
             "lsd_tpu_torch.calibration.lidar", "lsd_tpu_torch.calibration.trajectory",
-            "lsd_tpu_torch.calibration.camera"} <= set(mods)
+            "lsd_tpu_torch.calibration.camera", "lsd_tpu_torch.io.rs_difop", "lsd_tpu_torch.io.gpchc", "lsd_tpu_torch.io.ins_binary",
+            "lsd_tpu_torch.runtime.lidar_source", "lsd_tpu_torch.runtime.aux_sources",
+            "lsd_tpu_torch.runtime.camera_source", "lsd_tpu_torch.runtime.gst_caps",
+            "lsd_tpu_torch.sensors.ins", "lsd_tpu_torch.sensors.serial_port",
+            "lsd_tpu_torch.sensors.radar", "lsd_tpu_torch.sensors.can_bus",
+            "lsd_tpu_torch.sensors.can_sink", "lsd_tpu_torch.detection.fusion",
+            "lsd_tpu_torch.slam.loc_output", "lsd_tpu_torch.comms.zcm_udpm",
+            "lsd_tpu_torch.comms.zcm_ipc", "lsd_tpu_torch.comms.message_server",
+            "lsd_tpu_torch.web.server", "lsd_tpu_torch.web.upgrade",
+            "lsd_tpu_torch.tools.recv"} <= set(mods)
     assert len(mods) > 50
     pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
-    code = ("import sys; import lsd_tpu_torch, " + ", ".join(pkgs + mods) + "; "
+    # lsd_tpu_torch.native is a package with no module besides its __init__
+    code = ("import sys; import lsd_tpu_torch, lsd_tpu_torch.native, " + ", ".join(pkgs + mods) + "; "
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'msgpack', 'lsd_tpu', 'cv2', "
             "'yaml') or m.startswith(('jax.', 'flax.', 'msgpack.', 'lsd_tpu.', 'cv2.', 'yaml.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")

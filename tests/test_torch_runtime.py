@@ -210,11 +210,24 @@ def test_perception_needs_a_device(monkeypatch):
 
 
 def test_online_sources_raise():
+    """Online, ``SourceManager`` opens the configured sensors as the
+    reference's does, and a sensor that cannot be opened raises: here a
+    LiDAR whose UDP port another socket holds (the native receiver's bind
+    fails)."""
+    import socket
     from lsd_tpu_torch.runtime.source_manager import SourceManager
+    holder = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    holder.bind(("0.0.0.0", 0))
     cfg = trt.ConfigManager().config
     cfg.input.mode = "online"
-    with pytest.raises(NotImplementedError, match="A12c"):
-        SourceManager(cfg)
+    cfg.lidar = [dict(name="0-VLP-16", port=holder.getsockname()[1], decoder="VLP-16")]
+    try:
+        src = SourceManager(cfg)
+        assert src.player is None and not src.offline
+        with pytest.raises(OSError, match="failed to open UDP port"):
+            src.setup(cfg)
+    finally:
+        holder.close()
 
 
 def test_eval_dump_lines_equal(tmp_path):
