@@ -224,6 +224,40 @@ Phases, in order; any failure exits non-zero:
    SIGINT.  Reported: datagrams and frames per second, the SLAM stage's ms
    per frame, frames integrated, drops and drop share, IMU rows per frame,
    the RMSE beside that of a pose held at the seed, and the phase's seconds.
+14. Multi-device code (``run_multi_device``; ``lsd_tpu_torch.parallel``),
+   in this process on one NCCL rank of its own (world size 1; the
+   collectives go through NCCL all the same) unless said otherwise.  (a)
+   ``make_sharded_lio_step`` at phase 2's width over MD_SCANS scans of
+   phase 2's world, ``research_thresh`` 0 (the sharded step matches planes
+   once per scan), against ``lio_step`` at the same settings on the same
+   scans, both under torch's deterministic algorithms: each scan's position
+   within MD_POS_ATOL_M, the ATE below ATE_LIMIT_M, the p2p kernel launched
+   ``max_iters`` times per scan and held against its plain version on this
+   path's first-iteration inputs; ms per scan of both.  (b)
+   ``sharded_lio_update`` on the next scan against ``lio_step``: the
+   reference test's bars (``tests/test_parallel.py``: 5e-3 m, ``|q . q'|``
+   above 1 - 1e-5).  (c) ``optimize_sharded`` and ``optimize_schur`` on phase
+   4's saved graph, its poses perturbed from a seed, against
+   ``posegraph.optimize``: positions within MD_PGO_ATOL_M (sharded) and
+   MD_SCHUR_ATOL_M (Schur); ms per Gauss-Newton round by CUDA events.  (d)
+   ``tools/campaign.py:merge_distributed`` on phase 4's map and phase 10a's
+   ``Perception`` map: at least one cross edge, no fallback to the
+   single-device solver; then what ``campaign.main`` runs on a one-card host,
+   ``tools/campaign_merge.py`` in a subprocess on 8 gloo ranks of the CPU:
+   the same cross edges, node positions within MD_MERGE_ATOL_M of the
+   card's.  (e) ``make_sharded_lio_step`` on 2 gloo ranks in processes of
+   their own, both on this card (CUDA tensors through gloo), over
+   MD_GLOO_SCANS scans: the ranks' poses bitwise equal, each rank owning
+   40-60 % of the map's occupied slots (the owner hash's uniformity bar of
+   ``tests/test_sharded_map.py``, 0.8 of the mean share), the kernel
+   ``max_iters`` times per scan in each.  (f) ``Trainer(mesh=...)`` against
+   the one-card ``Trainer`` from phase 11's detector setup (the shipped
+   checkpoint, float32): one batch's loss within 1e-4, its gradients within
+   TRAIN_GRAD_RTOL of each leaf's largest magnitude, each trainer's
+   optimizer update from its own gradient per leaf at cosine >=
+   MD_UPDATE_COS and relative norm gap <= MD_UPDATE_GAP, and one real
+   step finite.  Every group start has a
+   60 s timeout and every spawned rank ends with the phase.
 
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
@@ -234,6 +268,7 @@ prints one JSON line per path, the card's name and power limit, one
 import faulthandler
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -385,6 +420,21 @@ LIDAR_INS_DEG, LIDAR_INS_M = 0.5, 0.1
 ONLINE_SCANS, ONLINE_DATAGRAM_POINTS, ONLINE_INS_HZ = 150, 4093, 100
 ONLINE_MIN_INTEGRATED, ONLINE_REPLAY_ATOL_M, ONLINE_RMSE_BAR_M = 20, 1e-4, 12.9
 ONLINE_RECV_FRAMES, ONLINE_CLI_TIMEOUT_S = 5, 120
+# phase 14: multi-device code at world size 1 on the card (and 2 gloo ranks
+# on it).  The sharded step and lio_step do the same arithmetic at world
+# size 1 (one table of the whole capacity, one rank's partials), so each
+# scan's position is held to 1e-4 m; the sharded PGO to optimize at the
+# reference test's 1e-3 (tests/test_sharded_pgo.py) and Schur at 5e-3
+# (tests/test_schur_pgo.py); the card's merge to the 8-rank CPU merge at
+# 1e-3 m
+MD_SCANS, MD_GLOO_SCANS, MD_POS_ATOL_M = 30, 10, 1e-4
+MD_PGO_ATOL_M, MD_SCHUR_ATOL_M, MD_MERGE_ATOL_M = 1e-3, 5e-3, 1e-3
+MD_INIT_TIMEOUT_S, MD_MERGE_TIMEOUT_S = 60, 600
+# phase 14f: each trainer's optimizer update from its own gradient, per
+# leaf (measured on an H100 at world size 1: cosine above 0.99999999, norm
+# gap at most 1.2e-4; an optimizer configured otherwise, or a gradient
+# averaged wrongly, moves them by orders of magnitude)
+MD_UPDATE_COS, MD_UPDATE_GAP = 0.999, 5e-3
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -469,13 +519,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_run(dev):
+def make_run(dev, n_scans=N_WARM + N_BENCH):
     """Scans on the device, the initial navigation state and the config."""
     import torch
     from lsd_tpu_torch.sim import CircleSim, SimConfig
     from lsd_tpu_torch.tools.profile_lio import BENCH_CFG as cfg, nav_at_start
 
-    sim = CircleSim(SimConfig(n_scans=N_WARM + N_BENCH, points_per_scan=CAP,
+    sim = CircleSim(SimConfig(n_scans=n_scans, points_per_scan=CAP,
                               point_noise=0.01, seed=7))
     data = sim.generate(capacity=CAP, imu_capacity=IMU_CAP)
     nav0 = nav_at_start(sim, dev)
@@ -2466,9 +2516,9 @@ def run_pipeline_detection(dev, card, root, direct):
              objects_per_frame=objects[:n], udp_port=port))
 
 
-def run_pipeline(dev, card, sim, data, mapping_report, loc_report, det_report):
+def run_pipeline(dev, card, sim, data, mapping_report, loc_report, det_report, keep_map):
     """Phase 10: the runtime's default pipeline, mapping, localization on
-    that map, and detection."""
+    that map, and detection; 10a's map is copied to ``keep_map``."""
     from lsd_tpu_torch.tools.profile_lio import nav_at_start
     report = {}
     with tempfile.TemporaryDirectory() as root:
@@ -2476,6 +2526,7 @@ def run_pipeline(dev, card, sim, data, mapping_report, loc_report, det_report):
             dev, card, root, sim, data[:N_PIPE_MAP], nav_at_start(sim, dev),
             dict(phase4_sync=mapping_report["ms_per_scan"],
                  phase4_async=mapping_report["async"]["ms_per_scan"]))
+        shutil.copytree(map_dir, keep_map)
         report["localization"] = run_pipeline_localization(
             dev, card, root, sim, map_dir,
             dict(phase6_process_scan_median=loc_report["ms_per_process_scan_median"]))
@@ -3714,6 +3765,361 @@ def rehearse_online(keep_dir=None):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device code
+
+
+def deterministic(on=True):
+    """Turn torch's deterministic algorithms on or off; returns the old setting."""
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on)
+    return was
+
+
+def run_sharded_map_world1(mesh, card, cfg, nav0, scans, gt):
+    """Phase 14a: the map-sharded step at world size 1 against ``lio_step``
+    on the same scans.  Returns (report, lio_step's state, the p2p kernel's
+    max error on this path's inputs)."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.parallel import make_sharded_lio_step, sharded_lio_init
+    from lsd_tpu_torch.slam.lio import lio_init, lio_step
+    from lsd_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = cfg._replace(research_thresh=0.0)
+    step = make_sharded_lio_step(cfg, mesh)
+    runs = {}
+    for name in ("sharded", "lio_step"):
+        st = sharded_lio_init(cfg, mesh, nav0) if name == "sharded" else lio_init(cfg, nav0)
+        poses, prev = [], None
+        p2p_reduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for scan in scans:
+            prev = st
+            if name == "sharded":
+                st, pose = step(st, *scan)
+            else:
+                st, info = lio_step(cfg, st, *scan)
+                pose = info["pose"]
+            poses.append(pose)
+        torch.cuda.synchronize()
+        runs[name] = dict(ms=(time.perf_counter() - t0) / len(scans) * 1e3,
+                          launches=p2p_reduce.launches, st=st, prev=prev,
+                          poses=torch.stack(poses).cpu().numpy().astype(float))
+    sh, one = runs["sharded"], runs["lio_step"]
+    if sh["launches"] != cfg.max_iters * len(scans):
+        fail(f"multi-device (a): p2p_reduce launched {sh['launches']} times over {len(scans)} "
+             f"scans of the sharded step, expected max_iters x scans")
+    gaps = np.linalg.norm(sh["poses"][:, :3, 3] - one["poses"][:, :3, 3], axis=1)
+    ate = ate_rmse(sh["poses"], gt[:len(scans)], warmup=0)
+    if not gaps.max() <= MD_POS_ATOL_M:
+        fail(f"multi-device (a): the sharded step lies {gaps.max():.3e} m from lio_step "
+             f"(bar {MD_POS_ATOL_M}), per scan {gaps.tolist()}")
+    if not (ate < ATE_LIMIT_M and np.isfinite(sh["poses"]).all()):
+        fail(f"multi-device (a): ATE {ate} m of the sharded step is not below {ATE_LIMIT_M} m")
+    # the kernel against its plain version on this path's first-iteration
+    # inputs (world size 1: the whole point range, planes from the summed
+    # moments, which are the whole map's)
+    max_err = compare_p2p(p2p_inputs(cfg, sh["prev"], scans[-1]), cfg.max_resid)
+    report = dict(card=card, world_size=mesh.size, backend="nccl", scans=len(scans),
+                  points_per_scan=CAP, ds_capacity=cfg.ds_capacity,
+                  map_capacity=cfg.map_capacity, ms_per_scan_sharded=sh["ms"],
+                  ms_per_scan_lio_step=one["ms"], max_pos_gap_m=float(gaps.max()),
+                  ate_m=float(ate), p2p_launches=sh["launches"], p2p_max_abs_err=max_err,
+                  deterministic_algorithms=True)
+    log(f"multi-device (a), make_sharded_lio_step at world size 1 (NCCL) over {len(scans)} "
+        f"scans of {CAP} points on {card}: {sh['ms']:.2f} ms/scan against lio_step's "
+        f"{one['ms']:.2f}, largest position gap {gaps.max():.3e} m, ATE {ate:.5f} m, "
+        f"p2p_reduce launches {sh['launches']}, kernel against plain {max_err:.3e}")
+    return report, one["st"]
+
+
+def check_sharded_update(mesh, cfg, st, scan):
+    """Phase 14b: ``sharded_lio_update`` on one scan against ``lio_step``."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.parallel import sharded_lio_update
+    from lsd_tpu_torch.slam.lio import lio_step, scan_front
+    front = scan_front(cfg, st, *scan)
+    p2p_reduce.launches = 0
+    nav = sharded_lio_update(cfg, mesh, front.nav_prop, front.P_prop, st.map, front.ds_pts,
+                             front.ds_mask)
+    launches = p2p_reduce.launches
+    st2, _ = lio_step(cfg, st, *scan)
+    dp = float((nav.pos - st2.nav.pos).norm())
+    dq = abs(float(nav.quat @ st2.nav.quat))
+    moved = float((nav.pos - front.nav_prop.pos).norm())
+    report = dict(pos_gap_m=dp, quat_dot=dq, moved_m=moved, p2p_launches=launches)
+    log(f"multi-device (b), sharded_lio_update at world size 1 against lio_step: {report}")
+    if not (dp < 5e-3 and dq > 1 - 1e-5):
+        fail(f"multi-device (b): sharded_lio_update is {dp} m and |q.q'| {dq} from lio_step")
+    if launches != cfg.max_iters:
+        fail(f"multi-device (b): p2p_reduce launched {launches} times, expected {cfg.max_iters}")
+    return report
+
+
+def graph_from_map(map_dir, dev, seed=0):
+    """Phase 4's saved graph (nodes, odometry and loop edges), each free
+    pose perturbed by seeded noise (2 cm, 0.3 deg) so the solvers have work."""
+    from lsd_tpu_torch.geometry import np_so3
+    from lsd_tpu_torch.slam.graph_builder import PoseGraphBuilder
+    from lsd_tpu_torch.slam.map_io import load_map
+    d = load_map(map_dir)
+    rng = np.random.default_rng(seed)
+    b = PoseGraphBuilder()
+    fixed = set(d["fixed"]) or {0}
+    for k, T in enumerate(d["poses"]):
+        T = np.asarray(T, float).copy()
+        if k not in fixed:
+            T[:3, :3] = T[:3, :3] @ np_so3.exp_so3(rng.normal(0, np.radians(0.3), 3))
+            T[:3, 3] += rng.normal(0, 0.02, 3)
+        b.add_node(T, fixed=k in fixed)
+    for i, j, T, info in d["edges"]:
+        info = np.asarray(info, float)
+        b.add_se3_edge(i, j, np.asarray(T, float), rot_info=info[:3], trans_info=info[3:6])
+    return b.to_data(device=dev), len(d["poses"]), len(d["edges"])
+
+
+def check_sharded_pgo(mesh, map_dir):
+    """Phase 14c: the sharded and Schur solvers against ``optimize``."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.parallel import optimize_schur, optimize_sharded
+    from lsd_tpu_torch.slam.posegraph import PgoConfig, optimize
+    graph, n_nodes, n_edges = graph_from_map(map_dir, mesh.device)
+    cfg = PgoConfig(outer_iters=6, cg_iters=120)
+    p2p_reduce.launches = 0
+    out, ms, infos = {}, {}, {}
+
+    def schur():
+        g, infos["schur"] = optimize_schur(graph, mesh, cfg)
+        return g
+    for name, fn in (("optimize", lambda: optimize(graph, cfg)[0]),
+                     ("sharded", lambda: optimize_sharded(graph, mesh, cfg)),
+                     ("schur", schur)):
+        fn()                                            # warm-up
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out[name] = fn()
+        b.record()
+        b.synchronize()
+        ms[name] = a.elapsed_time(b) / cfg.outer_iters
+    pos = {k: g.nodes.pos[:n_nodes].cpu().numpy() for k, g in out.items()}
+    start = graph.nodes.pos[:n_nodes].cpu().numpy()
+    gap_sh = float(np.abs(pos["sharded"] - pos["optimize"]).max())
+    gap_sc = float(np.abs(pos["schur"] - pos["optimize"]).max())
+    moved = float(np.abs(pos["optimize"] - start).max())
+    report = dict(nodes=n_nodes, edges=n_edges, outer_iters=cfg.outer_iters,
+                  cg_iters=cfg.cg_iters, ms_per_round=ms, max_gap_sharded_m=gap_sh,
+                  max_gap_schur_m=gap_sc, moved_m=moved, p2p_launches=p2p_reduce.launches,
+                  schur_info={k: (float(v) if torch.is_tensor(v) else v)
+                              for k, v in infos["schur"].items()})
+    log(f"multi-device (c), PGO on phase 4's graph ({n_nodes} nodes, {n_edges} edges) at "
+        f"world size 1: ms per GN round {ms}; sharded {gap_sh:.2e} m and Schur {gap_sc:.2e} m "
+        f"from optimize, which moved the nodes up to {moved:.3f} m")
+    if not (gap_sh <= MD_PGO_ATOL_M and gap_sc <= MD_SCHUR_ATOL_M and moved > 1e-3):
+        fail(f"multi-device (c): sharded PGO {gap_sh} m (bar {MD_PGO_ATOL_M}), Schur {gap_sc} m "
+             f"(bar {MD_SCHUR_ATOL_M}) from optimize; optimize moved the nodes {moved} m")
+    return report
+
+
+def start_cpu_merge(map_a, map_b, out_dir, out_json):
+    """``tools/campaign_merge.py`` in a subprocess on 8 gloo ranks of the CPU,
+    what ``campaign.main`` runs on a one-card host; returns the process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_path = out_json + ".log"
+    with open(log_path, "w") as fh:
+        return subprocess.Popen([sys.executable, "-m", "lsd_tpu_torch.tools.campaign_merge",
+                                 map_a, map_b, out_dir, out_json], cwd=root, stdout=fh,
+                                stderr=subprocess.STDOUT), log_path
+
+
+def check_merge(mesh, card, map_a, map_b, root, cpu_merge):
+    """Phase 14d: the campaign's distributed merge on the card at world size
+    1, then the 8-rank CPU merge against it."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam.map_io import load_map
+    from lsd_tpu_torch.tools.campaign import merge_distributed
+    card_dir = os.path.join(root, "merged_card")
+    p2p_reduce.launches = 0
+    t0 = time.perf_counter()
+    m = merge_distributed(mesh, map_a, map_b, card_dir, progress=log)
+    wall = time.perf_counter() - t0
+    rep = {k: v for k, v in m.items() if k not in ("builder", "info")}
+    rep.update(wall_s=wall, p2p_launches=p2p_reduce.launches)
+    if rep["cross_edges"] < 1 or rep["single_host_fallback"]:
+        fail(f"multi-device (d): the card's merge found {rep['cross_edges']} cross edges, "
+             f"single_host_fallback {rep['single_host_fallback']}")
+    proc, log_path = cpu_merge
+    try:
+        rc = proc.wait(timeout=MD_MERGE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"multi-device (d): the 8-rank CPU merge did not end within {MD_MERGE_TIMEOUT_S} s")
+    tail = open(log_path).read()[-4000:]
+    if rc != 0:
+        fail(f"multi-device (d): the 8-rank CPU merge exited {rc}:\n{tail}")
+    with open(log_path[:-len(".log")]) as fh:
+        cpu = json.load(fh)
+    cpu_dir = os.path.join(root, "merged_cpu")
+    a = np.stack(load_map(card_dir)["poses"])[:, :3, 3]
+    b = np.stack(load_map(cpu_dir)["poses"])[:, :3, 3]
+    gap = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    rep.update(cpu_merge=cpu, cpu_vs_card_max_gap_m=gap)
+    log(f"multi-device (d), merge_distributed of phase 4's and phase 10a's maps on {card} "
+        f"(world size 1): {rep}")
+    if not (cpu["schur_devices"] == 8 and cpu["cross_edges"] == rep["cross_edges"]
+            and not cpu["single_host_fallback"] and gap <= MD_MERGE_ATOL_M):
+        fail(f"multi-device (d): the 8-rank CPU merge ({cpu}) against the card's: node "
+             f"positions {gap} m apart (bar {MD_MERGE_ATOL_M})")
+    return rep
+
+
+def sharded_map_rank_on_card(mesh, cfg, scans, nav0):
+    """Phase 14e's rank: the map-sharded step with its tensors on card 0,
+    its collectives through gloo."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.parallel import make_sharded_lio_step, sharded_lio_init
+    from lsd_tpu_torch.slam.state import NavState
+    from lsd_tpu_torch.utils.precision import set_slam_precision
+    set_slam_precision()
+    deterministic()
+    dev = torch.device("cuda", 0)
+    mesh = mesh._replace(device=dev)
+    nav = NavState(*[torch.as_tensor(nav0[f], device=dev) for f in NavState._fields])
+    step = make_sharded_lio_step(cfg, mesh)
+    st = sharded_lio_init(cfg, mesh, nav)
+    poses = []
+    p2p_reduce.launches = 0
+    t0 = time.perf_counter()
+    for scan in scans:
+        st, pose = step(st, *[torch.as_tensor(a, device=dev) for a in scan])
+        poses.append(pose)
+    torch.cuda.synchronize()
+    return dict(poses=torch.stack(poses).cpu().numpy(), capacity=st.map.capacity,
+                occupied=int((st.map.keys >= 0).sum()), launches=p2p_reduce.launches,
+                device=str(st.P.device), ms_per_scan=(time.perf_counter() - t0) / len(scans) * 1e3)
+
+
+def check_gloo_on_card(card, cfg, nav0, scans):
+    """Phase 14e: the map-sharded step on 2 gloo ranks, both on this card."""
+    from lsd_tpu_torch.parallel import run_ranks
+    from lsd_tpu_torch.slam.state import NavState
+    cfg = cfg._replace(research_thresh=0.0)
+    nav = {f: getattr(nav0, f).cpu().numpy() for f in NavState._fields}
+    host = [tuple(a.cpu().numpy() for a in scan) for scan in scans]
+    t0 = time.perf_counter()
+    outs = run_ranks(sharded_map_rank_on_card, 2, args=(cfg, host, nav), backend="gloo",
+                     init_timeout_s=MD_INIT_TIMEOUT_S, timeout_s=300)
+    wall = time.perf_counter() - t0
+    occ = np.asarray([o["occupied"] for o in outs])
+    equal = all(np.array_equal(o["poses"], outs[0]["poses"]) for o in outs)
+    rep = dict(ranks=2, backend="gloo", devices=[o["device"] for o in outs],
+               capacity_per_rank=[o["capacity"] for o in outs], occupied=occ.tolist(),
+               launches=[o["launches"] for o in outs],
+               ms_per_scan=[o["ms_per_scan"] for o in outs], poses_bitwise_equal=equal,
+               wall_s=wall, scans=len(scans))
+    log(f"multi-device (e), make_sharded_lio_step on 2 gloo ranks on {card}: {rep}")
+    if not equal:
+        fail("multi-device (e): the two ranks' poses differ")
+    # the reference's uniformity bar for the owner hash (every rank above
+    # 0.8 of the mean share, tests/test_sharded_map.py), at 2 ranks 40-60 %
+    if not occ.min() > 0.8 * occ.mean():
+        fail(f"multi-device (e): the ranks own {occ.tolist()} of the occupied slots")
+    if any(n != cfg.max_iters * len(scans) for n in rep["launches"]):
+        fail(f"multi-device (e): p2p_reduce launches per rank {rep['launches']}, expected "
+             f"max_iters x scans = {cfg.max_iters * len(scans)}")
+    if rep["devices"] != ["cuda:0", "cuda:0"] or rep["capacity_per_rank"] != [
+            cfg.map_capacity // 2] * 2:
+        fail(f"multi-device (e): ranks on {rep['devices']}, capacities {rep['capacity_per_rank']}")
+    return rep
+
+
+def check_trainer_mesh(mesh, dev):
+    """Phase 14f: ``Trainer(mesh=...)`` at world size 1 against the one-card
+    ``Trainer`` of phase 11's detector setup, from the shipped checkpoint."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.training.trainer import Trainer
+    setup = training_setups()["detector"]
+    batch = next(setup["data"](1).batches(1))
+    p2p_reduce.launches = 0
+    runs = {}
+    for key in ("one", "mesh"):
+        tr = setup["make"](dev, 0, 1e-3, 1, 1000, torch.float32)
+        if key == "mesh":
+            tr = Trainer(tr.det_cfg, tr.cfg, mesh=mesh, dtype=torch.float32)
+        tr.load(setup["weights"])
+        grads = {}
+        step = tr.opt.step
+        # the gradients the optimizer would see (after the mean over the
+        # ranks), read in place of a step
+        tr.opt.step = lambda: grads.update({n: p.grad.detach().clone()
+                                            for n, p in tr.model.named_parameters()})
+        loss, _ = tr.train_step(tr.upload(batch))
+        tr.opt.step = step
+        runs[key] = (tr, float(loss), grads)
+    (one, l1, g1), (trm, lm, gm) = runs["one"], runs["mesh"]
+    share = leaf_share(gm, {n: g.cpu() for n, g in g1.items()})
+    # each trainer's update from its own gradient, per leaf by cosine and
+    # relative norm gap (Adam divides a gradient of rounding noise by its
+    # own RMS: such an element moves by up to lr either way, so an
+    # element-wise bar would judge the noise)
+    want = {n: u.cpu() for n, u in optimizer_update(one, g1).items()}
+    own = leaf_cos_gap(optimizer_update(trm, gm), want)
+    loss, _ = trm.train_step(trm.upload(batch))
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p).all())
+                                                 for p in trm.model.parameters())
+    rep = dict(loss_one=l1, loss_mesh=lm, grad_max_share=max(share.values()),
+               grad_worst_leaf=max(share, key=share.get),
+               update_min_cos=min(c for c, _ in own.values()),
+               update_max_gap=max(g for _, g in own.values()),
+               update_worst_leaf=max(own, key=lambda n: own[n][1]),
+               step_finite=finite, p2p_launches=p2p_reduce.launches)
+    log(f"multi-device (f), Trainer(mesh) at world size 1 against the one-card Trainer: {rep}")
+    if not (abs(lm - l1) <= 1e-4 * abs(l1) and rep["grad_max_share"] <= TRAIN_GRAD_RTOL
+            and rep["update_min_cos"] >= MD_UPDATE_COS and rep["update_max_gap"] <= MD_UPDATE_GAP
+            and finite):
+        fail(f"multi-device (f): Trainer(mesh) differs from the one-card Trainer: {rep}")
+    return rep
+
+
+def run_multi_device(dev, card, map_a, map_b, root):
+    """Phase 14: the multi-device programs (see the docstring)."""
+    import torch
+    from lsd_tpu_torch.parallel import single_rank
+    report = dict(card=card)
+    t_phase = time.perf_counter()
+    cpu_merge = start_cpu_merge(map_a, map_b, os.path.join(root, "merged_cpu"),
+                                os.path.join(root, "merge_cpu.json"))
+    try:
+        cfg, nav0, scans, gt = make_run(dev, MD_SCANS + 1)
+        with single_rank("nccl", timeout_s=MD_INIT_TIMEOUT_S) as mesh:
+            was = deterministic()
+            try:
+                report["sharded_map"], st = run_sharded_map_world1(
+                    mesh, card, cfg, nav0, scans[:MD_SCANS], gt)
+                report["sharded_update"] = check_sharded_update(mesh, cfg, st, scans[MD_SCANS])
+            finally:
+                deterministic(was)
+            report["pgo"] = check_sharded_pgo(mesh, map_a)
+            report["merge"] = check_merge(mesh, card, map_a, map_b, root, cpu_merge)
+            report["trainer"] = check_trainer_mesh(mesh, dev)
+        report["gloo_on_card"] = check_gloo_on_card(card, cfg, nav0, scans[:MD_GLOO_SCANS])
+    finally:
+        if cpu_merge[0].poll() is None:
+            cpu_merge[0].kill()
+            cpu_merge[0].wait()
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"multi-device: phase 14 took {report['phase_s']:.1f} s")
+    return report
+
+
 def main() -> None:
     # a fatal signal prints the stack of every Python thread, the one that
     # took it marked "Current thread" (a thread without Python frames, such
@@ -3737,6 +4143,8 @@ def main() -> None:
 
     card = card_line()
     dev = torch.device("cuda", 0)
+    # phase 14 merges the maps of phases 4 and 10a: they are kept here
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -3810,6 +4218,7 @@ def main() -> None:
     # ---- 4. the mapping path, 5. the raw-point LIO path --------------------
     with tempfile.TemporaryDirectory() as map_dir:
         mapping_report, map_sim, map_data = run_mapping(dev, card, cfg, map_dir)
+        map_phase4 = shutil.copytree(map_dir, os.path.join(keep, "map_phase4"))
         p2p_report["launches_mapping"] = mapping_report["p2p_launches"]
         points_report = run_points(dev, card, cfg, nav0, scans, gt)
         p2p_report["launches_points"] = points_report["p2p_launches"]
@@ -3843,8 +4252,9 @@ def main() -> None:
     phase_done("9 camera")
 
     # ---- 10. the runtime's default pipeline ---------------------------------
+    map_phase10a = os.path.join(keep, "map_phase10a")
     pipe_report = run_pipeline(dev, card, map_sim, map_data, mapping_report, loc_report,
-                               det_report)
+                               det_report, map_phase10a)
     for where in ("mapping", "localization", "detection"):
         p2p_report[f"launches_pipeline_{where}"] = pipe_report[where]["p2p_launches"]
     phase_done("10 pipeline")
@@ -3864,6 +4274,20 @@ def main() -> None:
     online_report = run_online(dev, card)
     p2p_report["launches_online"] = online_report["p2p_launches"]
     phase_done("13 online")
+
+    # ---- 14. multi-device code --------------------------------------------------
+    md_report = run_multi_device(dev, card, map_phase4, map_phase10a, keep)
+    shutil.rmtree(keep, ignore_errors=True)
+    p2p_report["max_abs_err"] = max(p2p_report["max_abs_err"],
+                                    md_report["sharded_map"]["p2p_max_abs_err"])
+    p2p_report["launches_parallel_sharded_map"] = md_report["sharded_map"]["p2p_launches"]
+    p2p_report["launches_parallel_sharded_lio_update"] = \
+        md_report["sharded_update"]["p2p_launches"]
+    p2p_report["launches_parallel_sharded_map_2_gloo_ranks"] = \
+        md_report["gloo_on_card"]["launches"]
+    for key in ("pgo", "merge", "trainer"):
+        p2p_report[f"launches_parallel_{key}"] = md_report[key]["p2p_launches"]
+    phase_done("14 multi-device")
     log(f"seconds by phase: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     print(json.dumps({"lio_step": lio_report}))
@@ -3879,6 +4303,7 @@ def main() -> None:
     print(json.dumps({"scoring": scoring_report}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"online": online_report}))
+    print(json.dumps({"multi_device": md_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,7 @@ def start_system(config: Optional[str] = None, data: Optional[str] = None,
     upgrade = UpgradeServer()
     try:
         upgrade.start(host=host, port=port + 500)
-    except OSError:
+    except (OSError, OverflowError):    # taken, or past 65535 (a web port above 65035)
         upgrade = None
     return p, srv, upgrade, port
 

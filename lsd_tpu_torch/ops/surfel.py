@@ -166,13 +166,20 @@ def _face_offsets(device: torch.device) -> torch.Tensor:
                       torch.stack([e, -e], 1).reshape(6, 3)])
 
 
-def surfel_neighborhood_moments(m: SurfelMap, queries: torch.Tensor) -> torch.Tensor:
-    """Summed neighbourhood moments (N, 10) in each query's voxel-centre frame."""
+def surfel_neighborhood_moments(m: SurfelMap, queries: torch.Tensor,
+                                neighbor_mask: torch.Tensor = None) -> torch.Tensor:
+    """Summed neighbourhood moments (N, 10) in each query's voxel-centre
+    frame.  ``neighbor_mask`` (N, 7), in ``_face_offsets`` order, drops
+    neighbours: the sharded map sums only the voxels a rank owns, and the
+    moments being additive, the sum of the ranks' partials is the merge
+    over the whole map."""
     offs = _face_offsets(queries.device)
     base = torch.floor(queries / m.voxel_size).to(torch.int32)
     ncoords = base[:, None, :] + offs[None, :, :]                 # (N, 7, 3)
     slots = _probe_find(m.keys, ncoords, m.capacity, num_probes=SURFEL_PROBES)
     ok_slot = slots >= 0
+    if neighbor_mask is not None:
+        ok_slot = ok_slot & neighbor_mask
     mom = m.moments[:, slots.clamp(min=0).long()] * ok_slot.to(torch.float32)  # (10, N, 7)
 
     # translate each neighbour's moments to the QUERY voxel centre frame:

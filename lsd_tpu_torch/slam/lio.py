@@ -121,6 +121,47 @@ def _match_planes(cfg: LioConfig, nav: NavState, pts_l: torch.Tensor,
     return normals, d, plane_ok, torch.zeros_like(d)
 
 
+def _measurement_system(cfg: LioConfig, nav: NavState, pts_l: torch.Tensor,
+                        mask: torch.Tensor, m: Union[SurfelMap, VoxelHashMap],
+                        planes=None):
+    """Residuals and Jacobian rows of point-to-plane matching at ``nav``:
+    (H (N, 24), r (N,), valid (N,), inv_var (N,)).  ``planes=None``
+    matches planes at ``nav``.  The plain form of what ``ops/p2p.py``
+    reduces: ``p2p_reduce`` with ``p2p_weight`` gives ``H^T W H`` and
+    ``H^T W r`` of these rows, W = valid * inv_var."""
+    R = nav.rot
+    Re = nav.ext_rot
+    pb = pts_l @ Re.T + nav.ext_t                 # body (IMU) frame
+    pw = pb @ R.T + nav.pos                       # world
+    if planes is None:
+        planes = _match_planes(cfg, nav, pts_l, mask, m)
+    normals, d, plane_ok, plane_rms = planes
+    r = torch.sum(pw * normals, -1) + d
+
+    # FAST-LIO validity gate: s = 1 - 0.9 |r| / sqrt(|p_l|)
+    pnorm = torch.linalg.norm(pts_l, dim=-1)
+    s = 1.0 - 0.9 * torch.abs(r) / torch.sqrt(torch.clamp(pnorm, min=1e-3))
+    valid = mask & plane_ok & (s > 0.9) & (torch.abs(r) < cfg.max_resid)
+
+    nR = normals @ R                               # n^T R, (N, 3)
+    H = torch.zeros((pts_l.shape[0], ERR_DIM), dtype=pts_l.dtype, device=pts_l.device)
+    H[:, 0:3] = normals
+    H[:, 3:6] = -torch.linalg.cross(nR, pb)
+    if cfg.est_extrinsic:
+        nRRe = nR @ Re
+        H[:, 18:21] = -torch.linalg.cross(nRRe, pts_l)
+        H[:, 21:24] = nR
+    # zero invalid rows so non-finite values of degenerate fits cannot leak
+    # through the masked products (NaN * 0 = NaN)
+    finite = torch.isfinite(r) & torch.all(torch.isfinite(H), dim=-1)
+    valid = valid & finite
+    H = torch.where(valid[:, None], H, 0.0)
+    r = torch.where(valid, r, 0.0)
+    # per-point measurement variance: base sigma + plane thickness
+    inv_var = 1.0 / (cfg.meas_noise ** 2 + plane_rms ** 2)
+    return H, r, valid, inv_var
+
+
 def _gate_degenerate(cfg: LioConfig, HtH: torch.Tensor):
     """Projection removing measurement influence along degenerate pose
     directions (eigenvalues of the 6x6 pose block below threshold), plus

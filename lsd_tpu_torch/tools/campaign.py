@@ -1,23 +1,36 @@
-"""Mapping campaign on the port: the per-session half of
-``lsd_tpu/tools/campaign.py``.
+"""Mapping campaign on the port (counterpart of
+``lsd_tpu/tools/campaign.py``): a figure-eight town session of about a
+thousand keyframes with several loops through the full pipeline, a second
+overlapping session, and the two merged by the distributed Schur solver.
 
-- ``make_sim``: the campaign's figure-eight session simulator;
-- ``make_recording``: the session streamed into a recording in the
-  reference's pickle format (the same frames, byte for byte, as the
-  reference writes for the same simulator);
-- ``run_session``: the recording replayed through the full ``Perception``
-  pipeline (Source -> SLAM -> Sink) in mapping mode on the port's device,
-  scored against ground truth, the map saved through ``slam.save_mapping``.
+Flow:
+  1. simulate session A (``FigureEightSim``, ``--laps`` laps) and record it
+     in the reference's pickle format (``make_recording``);
+  2. replay it through Source -> SLAM -> Sink (``run_session``, the
+     ``Perception`` pipeline in mapping mode, in a process of its own:
+     ``tools/campaign_session.py``), score it against ground truth, save
+     the map;
+  3. session B (offset start, fewer laps), likewise;
+  4. merge A and B: cross edges found by ScanContext and ICP, the joint
+     graph solved by ``parallel/schur_pgo.py:optimize_schur`` over a mesh
+     (``merge_distributed``): over NCCL ranks, one per card, up to 8, on a
+     host with two cards or more; else in a subprocess on 8 gloo ranks of
+     the CPU (``tools/campaign_merge.py``);
+  5. optionally, session A through the reference FAST-LIO2 binary of
+     ``baseline_ref/`` (odometry only; ``run_reference_odometry``).
 
-The campaign's cross-session merge (``merge_distributed``) and its
-``main`` need the distributed Schur solver of ``parallel/schur_pgo.py``,
-which the port does not have yet (ROADMAP A13): ``main`` raises
-``NotImplementedError`` before doing any work.
+Usage:
+  python -m lsd_tpu_torch.tools.campaign [--laps 5.5] [--points 16384]
+      [--out DIR] [--skip-reference] [--small] [--device cpu]
 """
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import resource
+import subprocess
+import sys
 import tempfile
 import time
 from typing import Dict, Optional
@@ -26,6 +39,7 @@ import numpy as np
 
 from ..utils.device import DeviceLike
 
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # a session with no new scan for this long is stalled: run_session stops
 # waiting for it (the reference's rule)
 STALL_S = 300.0
@@ -263,11 +277,254 @@ def run_session(rec: Dict, map_dir: str, sim, name: str,
     return metrics
 
 
+def run_reference_odometry(sim, tmpdir: str) -> Optional[Dict]:
+    """The same session through the reference FAST-LIO2 binary of
+    ``baseline_ref/`` (odometry only: the baseline driver has no loop
+    closure): dict(ate_m, per_scan_ms), or None where the binary is missing
+    and cannot be built, or fails.  Cached per ``tmpdir``: the binary's
+    result does not depend on the port."""
+    cache = os.path.join(tmpdir, "reference_odometry.json")
+    if os.path.exists(cache):
+        with open(cache) as fh:
+            return json.load(fh)
+    bin_path = os.path.join(REPO, "baseline_ref", "fastlio_baseline")
+    if not os.path.exists(bin_path):
+        try:
+            subprocess.run(["make", "-C", os.path.join(REPO, "baseline_ref")],
+                           check=True, timeout=600, capture_output=True)
+        except (OSError, subprocess.SubprocessError):
+            return None
+    from .export_replay import export_replay
+    replay = os.path.join(tmpdir, "campaign_replay.bin")
+    export_replay(replay, sim)
+    traj = replay + ".traj.txt"
+    try:
+        out = subprocess.run([bin_path, replay, traj], check=True,
+                             timeout=3600, capture_output=True, text=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    meas = json.loads(out.stdout.strip().splitlines()[-1])
+    gt = np.load(replay + ".gt.npy")
+    rows = np.loadtxt(traj)
+    est = np.zeros((len(rows), 4, 4))
+    est[:, :3] = rows[:, 1:].reshape(-1, 3, 4)
+    est[:, 3, 3] = 1
+    res = dict(ate_m=round(_ate(est, gt, 27), 4), per_scan_ms=float(meas["per_scan_ms"]))
+    with open(cache, "w") as fh:
+        json.dump(res, fh)
+    return res
+
+
+def merge_distributed(mesh, map_a: str, map_b: str, out_dir: Optional[str],
+                      progress=print) -> Dict:
+    """Cross-session merge whose joint graph is solved by the distributed
+    Schur solver over ``mesh``; a rank function: every rank of the mesh
+    calls it with the same maps (``campaign_merge.merge_ranks`` starts
+    them).  Rank 0 builds the joint graph as ``slam.map_merge.merge_maps``
+    builds it (that solves it once on its device) and sends it to the
+    other ranks, so that all solve one graph over the mesh.  Where the
+    distributed float32 solve gives non-finite poses, the single-device
+    solver redoes it (``single_host_fallback``).  Rank 0 saves the merged
+    map into ``out_dir``."""
+    from ..parallel.mesh import broadcast_object
+    from ..parallel.schur_pgo import optimize_schur
+    from ..slam.map_merge import merge_maps
+    from ..slam.posegraph import PgoConfig, optimize
+
+    joint = None
+    if mesh.rank == 0:
+        res = merge_maps(map_a, map_b, out_dir=None, device=mesh.device)
+        joint = dict(builder=res["builder"], n_a=res["n_a"], n_b=res["n_b"],
+                     cross_edges=len(res["cross_edges"]))
+    joint = broadcast_object(mesh, joint)
+    b = joint["builder"]
+    g = b.to_data(device=mesh.device)
+    cfg = PgoConfig(outer_iters=8, cg_iters=80)
+    t0 = time.perf_counter()
+    g2, info = optimize_schur(g, mesh, cfg)
+    pos, quat = g2.nodes.pos.cpu().numpy(), g2.nodes.quat.cpu().numpy()
+    dt = time.perf_counter() - t0
+    fallback = not (np.isfinite(pos).all() and np.isfinite(quat).all())
+    if fallback:
+        progress("campaign: Schur produced non-finite poses; "
+                 "falling back to single-device optimize")
+        g2, _ = optimize(g, cfg)
+    b.update_from(g2)
+    if out_dir and mesh.rank == 0:
+        from ..geometry import np_so3
+        from ..slam.map_io import load_map, save_map
+        da, db_ = load_map(map_a), load_map(map_b)
+        stamps = list(da["stamps"]) + list(db_["stamps"])
+        clouds = list(da["clouds"]) + list(db_["clouds"])
+        poses = [b.node_pose(k).astype(float) for k in range(b.num_nodes)]
+        edges_out = []
+        for (i, j, q, t, si) in b.se3:
+            T = np.eye(4)
+            T[:3, :3] = np_so3.quat_to_matrix(np.asarray(q))
+            T[:3, 3] = t
+            edges_out.append((i, j, T, np.asarray(si[:6]) ** 2))
+        save_map(out_dir, da.get("origin") if da.get("origin") is not None
+                 else np.zeros(3), stamps, poses, clouds, edges_out, fixed=[0])
+    return dict(n_a=joint["n_a"], n_b=joint["n_b"], cross_edges=joint["cross_edges"],
+                schur_devices=int(mesh.size),
+                schur_wall_s=round(dt, 2),
+                schur_compile_plus_first_round_s=info.get("compile_plus_first_round_s"),
+                schur_solve_round_ms=info.get("solve_round_ms"),
+                schur_solve_total_s=info.get("solve_total_s"),
+                single_host_fallback=fallback,
+                builder=b, info=info)
+
+
 def main(argv=None):
-    raise NotImplementedError(
-        "the campaign's cross-session merge runs the distributed Schur solver "
-        "(parallel/schur_pgo.py), which the port does not have yet (ROADMAP A13); "
-        "make_recording and run_session run one session")
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "lsd_campaign"))
+    ap.add_argument("--laps", type=float, default=5.5)
+    ap.add_argument("--laps-b", type=float, default=2.0)
+    ap.add_argument("--points", type=int, default=16384)
+    ap.add_argument("--radius", type=float, default=30.0)
+    ap.add_argument("--speed", type=float, default=5.0)
+    ap.add_argument("--skip-reference", action="store_true")
+    ap.add_argument("--small", action="store_true",
+                    help="tiny smoke-scale run (testing)")
+    ap.add_argument("--repeat-a", type=int, default=1,
+                    help="run session A this many consecutive times; every "
+                         "run's metrics are recorded under session_a_runs")
+    ap.add_argument("--json-out", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device of the sessions and the merge (default: the "
+                         "card; 'cpu' to run on the CPU)")
+    args = ap.parse_args(argv)
+
+    if args.small:
+        args.laps, args.laps_b, args.points, args.radius = 1.0, 0.6, 4096, 12.0
+
+    os.makedirs(args.out, exist_ok=True)
+    results: Dict = dict(config=dict(laps=args.laps, points=args.points,
+                                     radius=args.radius, speed=args.speed))
+
+    def mksim(seed, laps):
+        return make_sim(seed, laps, radius=args.radius, speed=args.speed,
+                        points=args.points)
+
+    def run_session_isolated(rec_root, rec, map_dir, name, laps, t_start=0.0):
+        """A session replay in a process of its own, with a hard timeout
+        and one retry: a hung session is killed, not the campaign."""
+        jout = os.path.join(args.out, f"session_{name}.json")
+        budget = int(max(1800, len(rec["gt"]) * 0.5) + 600)
+        cmd = [sys.executable, "-m", "lsd_tpu_torch.tools.campaign_session",
+               "--rec-root", rec_root, "--map-dir", map_dir,
+               "--name", name, "--t-start", str(t_start),
+               "--laps", str(laps), "--radius", str(args.radius),
+               "--speed", str(args.speed), "--points", str(args.points),
+               "--json-out", jout]
+        if args.device:
+            cmd += ["--device", args.device]
+        for attempt in (1, 2):
+            try:
+                subprocess.run(cmd, timeout=budget, cwd=REPO, check=True)
+                with open(jout) as fh:
+                    return json.load(fh)
+            except (OSError, subprocess.SubprocessError, ValueError) as exc:
+                print(f"campaign: session {name} attempt {attempt} "
+                      f"failed: {exc!r}", flush=True)
+        return dict(name=name, error="session failed twice")
+
+    t0 = time.time()
+    print("campaign: generating session A recording...", flush=True)
+    sim_a = mksim(7, args.laps)
+    rec_root_a = os.path.join(args.out, "recA")
+    rec_a = make_recording(sim_a, rec_root_a, capacity=args.points,
+                           progress=lambda m: print("campaign:", m, flush=True))
+    print(f"campaign: session A recorded ({len(rec_a['gt'])} scans, "
+          f"{time.time() - t0:.0f}s)", flush=True)
+
+    map_a = os.path.join(args.out, "mapA")
+    runs_a = []
+    for rep in range(max(1, args.repeat_a)):
+        r = run_session_isolated(rec_root_a, rec_a, map_a, "A", args.laps)
+        runs_a.append(r)
+        print(f"campaign: A (run {rep + 1}/{args.repeat_a}):", json.dumps(r), flush=True)
+    results["session_a"] = runs_a[-1]
+    if len(runs_a) > 1:
+        results["session_a_runs"] = [
+            dict(scans_per_sec=r.get("scans_per_sec"), wall_s=r.get("wall_s"),
+                 ate_map_m=r.get("ate_map_m"), loops=r.get("loops"),
+                 keyframes=r.get("keyframes"))
+            for r in runs_a]
+
+    # session B: the same world (same seed), started half a lap in, on the
+    # far lobe, mid-motion
+    print("campaign: generating session B recording...", flush=True)
+    sim_b = mksim(7, args.laps_b)
+    t_off = (2 * np.pi * args.radius) / args.speed
+    n_b = int(4 * np.pi * args.radius * args.laps_b / args.speed * sim_b.cfg.scan_hz)
+    rec_root_b = os.path.join(args.out, "recB")
+    rec_b = make_recording(sim_b, rec_root_b, t_start=t_off, capacity=args.points,
+                           n_scans=n_b, progress=lambda m: print("campaign:", m, flush=True))
+    map_b = os.path.join(args.out, "mapB")
+    results["session_b"] = run_session_isolated(rec_root_b, rec_b, map_b, "B", args.laps_b,
+                                                t_start=t_off)
+    print("campaign: B:", json.dumps(results["session_b"]), flush=True)
+
+    # the distributed merge, and the merged map's accuracy against ground
+    # truth.  The Schur solver needs a mesh: NCCL ranks, one per card, where
+    # the host has two cards or more; else 8 gloo ranks of the CPU in a
+    # subprocess
+    print("campaign: merging A+B (distributed Schur)...", flush=True)
+    try:
+        import torch
+        merged_dir = os.path.join(args.out, "merged")
+        merge_json = os.path.join(args.out, "merge.json")
+        n_cards = torch.cuda.device_count()
+        if args.device != "cpu" and n_cards >= 2:
+            from .campaign_merge import merge_ranks
+            results["merge"] = merge_ranks(map_a, map_b, merged_dir, min(n_cards, 8), "nccl")
+        else:
+            subprocess.run([sys.executable, "-m", "lsd_tpu_torch.tools.campaign_merge",
+                            map_a, map_b, merged_dir, merge_json],
+                           check=True, timeout=3600, cwd=REPO)
+            with open(merge_json) as fh:
+                results["merge"] = json.load(fh)
+        # score the saved merged map (either path)
+        from ..slam.map_io import load_map
+        md = load_map(merged_dir)
+        ts_to_gt = {int(t): T for t, T in zip(rec_a["ts_us"], rec_a["gt"])}
+        ts_to_gt.update({int(t): T for t, T in zip(rec_b["ts_us"], rec_b["gt"])})
+        est, gts = [], []
+        n_dropped = 0
+        for s, T in zip(md["stamps"], md["poses"]):
+            if int(s) in ts_to_gt:
+                T = np.asarray(T, float)
+                if not np.isfinite(T).all():
+                    n_dropped += 1
+                    continue
+                est.append(T)
+                gts.append(ts_to_gt[int(s)])
+        if n_dropped:
+            results["merge"]["nonfinite_poses"] = n_dropped
+        if len(est) > 10:
+            results["merge"]["ate_merged_m"] = round(_ate(np.stack(est), np.stack(gts), 2), 4)
+            results["merge"]["abs_merged_rmse_m"] = round(
+                _abs_err(np.stack(est), np.stack(gts), 2), 4)
+            results["merge"]["merged_nodes_scored"] = len(est)
+    except Exception as exc:       # the campaign reports a failed merge and goes on
+        import traceback
+        traceback.print_exc()
+        results["merge"] = dict(error=repr(exc))
+    print("campaign: merge:", json.dumps(results["merge"]), flush=True)
+
+    if not args.skip_reference:
+        print("campaign: reference odometry baseline...", flush=True)
+        ref = run_reference_odometry(mksim(7, args.laps), args.out)
+        results["reference_odometry"] = ref
+        print("campaign: ref:", json.dumps(ref), flush=True)
+
+    results["total_wall_s"] = round(time.time() - t0, 1)
+    print(json.dumps(results, default=str))
+    if args.json_out:
+        with open(args.json_out, "w") as fh:
+            json.dump(results, fh, indent=2, default=str)
+    return results
 
 
 if __name__ == "__main__":

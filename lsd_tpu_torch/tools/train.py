@@ -10,8 +10,9 @@ annotated .pkl recordings (frames carrying gt_boxes/gt_labels).  The
 weights file is the reference's flax-msgpack format: the runtime's
 ``build_detector_predict_fn(weights=...)`` of either package serves it.
 It runs on the card unless ``--device`` names another device.
-``--mesh-dp N`` with N > 1 (data parallelism over N devices) is not
-ported: it raises (ROADMAP A13).
+``--mesh-dp N`` trains data-parallel on N ranks (``parallel.run_ranks``):
+N cards over NCCL, one rank each, or with ``--device cpu`` N gloo ranks of
+the CPU; each batch of ``--batch`` frames is split over the ranks.
 """
 from __future__ import annotations
 
@@ -30,8 +31,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "lsd_tpu_detector.msgpack"))
     ap.add_argument("--mesh-dp", type=int, default=0,
-                    help="shard batches over N devices (0 = single device; N > 1 is "
-                         "not ported: ROADMAP A13)")
+                    help="shard batches over N ranks, one card each (0 = single device)")
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--eval-batches", type=int, default=4,
                     help="held-out batches for the AP eval")
@@ -50,11 +50,28 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run on the CPU)")
     args = ap.parse_args(argv)
-    if args.mesh_dp > 1:
-        raise NotImplementedError(
-            f"--mesh-dp {args.mesh_dp}: data-parallel training over several devices is "
-            "not ported (ROADMAP A13)")
+    if not args.mesh_dp:
+        return train(args)
+    if args.batch % args.mesh_dp:
+        raise ValueError(f"--batch {args.batch} does not split over --mesh-dp {args.mesh_dp}")
+    from ..parallel import run_ranks
+    # NCCL ranks need a card each (run_ranks raises, naming both counts)
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    return run_ranks(_train_rank, args.mesh_dp, args=(vars(args),), backend=backend,
+                     timeout_s=7 * 24 * 3600.0)[0]
 
+
+def _train_rank(mesh, args: dict) -> int:
+    """One rank of ``--mesh-dp``: rank 0 evaluates, saves and prints."""
+    args = argparse.Namespace(**args)
+    if mesh.rank != 0:
+        args.eval_every = 0
+    return train(args, mesh)
+
+
+def train(args, mesh=None) -> int:
+    """Train, evaluate and save as the arguments say; with a mesh, this
+    rank's share of data-parallel training (rank 0 saves)."""
     from ..models.detector import DetectorConfig
     from ..training import (LabeledFrameDataset, SyntheticDetectionDataset,
                             SyntheticSceneConfig, Trainer, TrainerConfig)
@@ -63,7 +80,7 @@ def main(argv=None) -> int:
                else DetectorConfig.reference_capacity() if args.ref_capacity
                else DetectorConfig())
     trainer = Trainer(det_cfg=det_cfg, cfg=TrainerConfig(lr=args.lr, total_steps=args.steps),
-                      device=args.device)
+                      device=None if mesh is not None else args.device, mesh=mesh)
     if args.init:
         trainer.load(args.init)
     if args.data:
@@ -81,6 +98,8 @@ def main(argv=None) -> int:
 
     out = trainer.fit(batches, eval_batches=eval_batches, eval_every=args.eval_every,
                       ckpt_path=args.out if args.eval_every else None)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     metrics = trainer.evaluate(eval_batches)
     path = trainer.save(args.out)
     print(f"trained {out['steps']} steps, final loss {out['final_loss']:.4f}, "

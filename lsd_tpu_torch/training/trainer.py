@@ -16,9 +16,13 @@ head's IoU against the geometric labels; ``save`` and ``load`` read and
 write the reference's flax-msgpack checkpoints, so the reference's
 ``load_params`` reads what the port saves and the reverse.
 
-The reference's ``mesh`` (data parallelism over a device mesh) is not here:
-the trainer runs on one ``device`` (ROADMAP A13).  ``TrainerConfig`` keeps
-the reference's fields, ``mesh_axis`` among them.
+``Trainer(mesh=...)`` trains data-parallel over a mesh of ranks
+(``parallel.make_mesh``), as the reference's ``mesh`` shards each batch
+over its ``dp`` axis: every rank builds the same model from the same seed,
+takes its contiguous slice of each batch, and one ``all_reduce`` averages
+the gradients (with the loss and its parts) before the optimizer, whose
+global-norm clip then sees the averaged gradients.  The parameters stay
+equal on every rank.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from ..detection.post import PostProcessConfig, postprocess
 from ..models.detector import (CenterPointDetector, DetectorConfig, detection_loss,
                                init_detector_params, make_seg_target, make_target_maps)
 from ..models.params_io import load_params, save_params
+from ..parallel.mesh import psum, rank_rows
 from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 from ..utils.log import get_logger
 from ..utils.precision import set_slam_precision
@@ -51,7 +56,7 @@ class TrainerConfig:
     warmup_steps: int = 100
     total_steps: int = 1000
     grad_clip: float = 10.0
-    mesh_axis: str = "dp"       # the reference's data-parallel axis (ROADMAP A13)
+    mesh_axis: str = "dp"       # the reference's data-parallel axis name
     log_every: int = 20
 
 
@@ -63,6 +68,7 @@ class StepTrainer:
     opt: ClippedAdamW
     device: torch.device
     logger = None
+    mesh = None                 # data parallelism over a mesh of ranks (Trainer only)
 
     def _start(self, model: torch.nn.Module, lr: float, warmup_steps: int, total_steps: int,
                weight_decay: float, grad_clip: float) -> None:
@@ -79,15 +85,38 @@ class StepTrainer:
 
     def train_step(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One update from a batch already on the device: (loss, aux) as
-        0-dim tensors on the device."""
+        0-dim tensors on the device.  With a mesh, the batch is the global
+        one: this rank trains on its slice, and (loss, aux) are the means
+        over the global batch."""
+        if self.mesh is not None:
+            batch = self._shard(batch)
         loss, aux = self.loss_on_batch(batch)
         with record_function("train/backward"):
             loss.backward()
+        if self.mesh is not None:
+            loss, aux = self._average(loss.detach(), aux)
         with record_function("train/optim"):
             self.opt.step()
             self.opt.zero_grad()
         self.step += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def _shard(self, batch: Batch) -> Batch:
+        """This rank's contiguous slice of a batch that splits evenly."""
+        mine = rank_rows(self.mesh, len(next(iter(batch.values()))))
+        return {key: v[mine] for key, v in batch.items()}
+
+    def _average(self, loss: torch.Tensor, aux: Dict[str, torch.Tensor]):
+        """Average the gradients, the loss and its parts over the mesh's
+        ranks in one ``all_reduce``; returns (loss, aux)."""
+        params = self.opt.params
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        dt = grads[0].dtype
+        sums = psum(self.mesh, *grads, loss.to(dt), *[v.detach().to(dt) for v in aux.values()])
+        for p, g in zip(params, sums):
+            p.grad = g / self.mesh.size
+        rest = [v / self.mesh.size for v in sums[len(params):]]
+        return rest[0], dict(zip(aux, rest[1:]))
 
     def fit(self, batches, log_every: int = 50) -> Dict:
         """Train on ``batches`` (dicts of numpy arrays), logging the loss every
@@ -114,13 +143,18 @@ class StepTrainer:
 class Trainer(StepTrainer):
     """``dtype`` is the network's compute type: bf16 as served; float32
     builds the twin that the parity checks train, and float64 (with
-    ``model.double()``) a reference for float32's own rounding."""
+    ``model.double()``) a reference for float32's own rounding.  With a
+    ``mesh`` (``parallel.Mesh``) it trains on the mesh's device,
+    data-parallel over its ranks."""
 
     def __init__(self, det_cfg: DetectorConfig = DetectorConfig(),
                  cfg: TrainerConfig = TrainerConfig(), device: DeviceLike = None,
-                 seed: int = 0, dtype: torch.dtype = torch.bfloat16):
+                 seed: int = 0, dtype: torch.dtype = torch.bfloat16, mesh=None):
         self.det_cfg, self.cfg = det_cfg, cfg
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # the heads' last convolutions are float32, as served: no TF32
         set_slam_precision()
         self.logger = get_logger("train")

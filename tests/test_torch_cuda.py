@@ -70,6 +70,10 @@ within 1e-5 in its float fields;
 launches the p2p kernel ``max_iters`` (4) times per scan; without a card,
 ``tools.evaluate``'s runner and CLI raise instead of running on the CPU.
 
+The multi-device code: the map-sharded LIO step on one NCCL rank follows
+``lio_step`` within 1e-3 m over six scans and launches the p2p kernel
+``max_iters`` times per scan.
+
 The online system: frames that the online source captured from live UDP
 traffic through ``SlamModule`` on the card and on the CPU, poses within
 0.02 m; ``run``'s ``start_system`` with no device puts ``Perception`` and
@@ -234,6 +238,36 @@ def test_lio_step_on_card_matches_cpu(cuda):
             assert p2p_reduce.launches - before == cfg.max_iters * len(data)
         final[str(dev)] = st.nav.pos.cpu().numpy()
     np.testing.assert_allclose(final["cuda:0"], final["cpu"], atol=1e-3)
+
+
+def test_sharded_lio_step_nccl_world_1_matches_lio_step(cuda):
+    """The map-sharded step on one NCCL rank against ``lio_step`` on six
+    small scans: within 1e-3 m (the card-against-CPU bar above: float
+    atomics order the scatters' sums differently from run to run), the p2p
+    kernel ``max_iters`` times per scan, the local table the whole map."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.parallel import make_sharded_lio_step, sharded_lio_init, single_rank
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam.lio import LioConfig, lio_init, lio_step
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    sim = CircleSim(SimConfig(n_scans=6, points_per_scan=4096, point_noise=0.01, seed=11))
+    data = sim.generate(capacity=4096, imu_capacity=16)
+    cfg = LioConfig(ds_capacity=2048, map_capacity=2 ** 14, scan_voxel=0.4, map_voxel=0.4,
+                    max_iters=4, research_thresh=0.0)
+    with single_rank("nccl", timeout_s=60) as mesh:
+        assert (mesh.size, mesh.rank, mesh.device) == (1, 0, cuda)
+        step = make_sharded_lio_step(cfg, mesh)
+        st_s = sharded_lio_init(cfg, mesh, nav_at_start(sim, cuda))
+        st_1 = lio_init(cfg, nav_at_start(sim, cuda))
+        for tup in data:
+            scan = [torch.as_tensor(a, device=cuda) for a in tup[:5]]
+            before = p2p_reduce.launches
+            st_s, pose = step(st_s, *scan)
+            assert p2p_reduce.launches - before == cfg.max_iters
+            st_1, info = lio_step(cfg, st_1, *scan)
+            np.testing.assert_allclose(pose[:3, 3].cpu().numpy(),
+                                       info["pose"][:3, 3].cpu().numpy(), atol=1e-3)
+        assert st_s.map.capacity == cfg.map_capacity
 
 
 # ---- the mapping path's ops: the card against the CPU ----------------------

@@ -20,6 +20,7 @@
 
 ``tests/test_torch_loc_eval.py`` runs ``tools/loc_eval.py`` itself.
 """
+import json
 import os
 import pickle
 
@@ -38,6 +39,7 @@ from lsd_tpu.tools import export_replay as jexport
 from lsd_tpu_torch import sim as tsim
 from lsd_tpu_torch.detection import eval as teval
 from lsd_tpu_torch.models import quantize as tquant
+from lsd_tpu_torch.slam import map_io as tmio
 from lsd_tpu_torch.tools import campaign as tcampaign
 from lsd_tpu_torch.tools import campaign_session as tsession
 from lsd_tpu_torch.tools import evaluate as tevaluate
@@ -248,7 +250,19 @@ def test_trainer_evaluate_takes_per_class_thresholds():
         assert alone["per_class"][lbl] == ap
 
 
-def test_campaign_merge_waits_for_a13():
-    for main in (tcampaign.main, tsession.main):
-        with pytest.raises(NotImplementedError, match="A13"):
-            main([])
+def test_campaign_merge_waits_for_a13(tmp_path):
+    """The campaign's session runner, which ``tools/campaign.py:main`` runs
+    in a process per session now that the merge is ported, replays a
+    recording on the CPU, saves the map and writes its metrics."""
+    sim = tcampaign.make_sim(7, 0.2, radius=8.0, points=2048)
+    tcampaign.make_recording(sim, str(tmp_path / "rec"), n_scans=12, capacity=2048)
+    out = tmp_path / "a.json"
+    metrics = tsession.main(["--rec-root", str(tmp_path / "rec"), "--map-dir",
+                             str(tmp_path / "map"), "--name", "A", "--laps", "0.2",
+                             "--radius", "8", "--points", "2048", "--json-out", str(out),
+                             "--device", "cpu"])
+    with open(out) as fh:
+        saved = json.load(fh)
+    assert saved["scans"] == metrics["scans"] == 12 and saved["name"] == "A"
+    assert metrics["keyframes"] >= 1
+    assert len(tmio.load_map(str(tmp_path / "map"))["poses"]) == metrics["keyframes"]

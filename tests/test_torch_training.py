@@ -326,8 +326,15 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     assert "trained 2 steps" in capsys.readouterr().out
     assert tio.load_params(out)["params"].keys() == {"PillarVFE_0", "BEVBackbone_0",
                                                      "CenterHead_0"}
-    with pytest.raises(NotImplementedError, match="A13"):
-        train.main(["--mesh-dp", "2", "--device", "cpu"])
+    # data-parallel on two gloo ranks; a card per rank is asked for otherwise
+    out2 = str(tmp_path / "w2.msgpack")
+    assert train.main(["--steps", "2", "--batch", "2", "--eval-batches", "1", "--mesh-dp", "2",
+                       "--device", "cpu", "--out", out2]) == 0
+    assert tio.load_params(out2)["params"].keys() == tio.load_params(out)["params"].keys()
+    with pytest.raises(RuntimeError, match="2 NCCL ranks need 2 cards, this host has 0"):
+        train.main(["--mesh-dp", "2", "--batch", "2"])
+    with pytest.raises(ValueError, match="--batch 3 does not split over --mesh-dp 2"):
+        train.main(["--mesh-dp", "2", "--batch", "3", "--device", "cpu"])
 
 
 def test_evaluate_matches_the_reference_trainer():

@@ -295,3 +295,34 @@ def test_run_cli_serves_and_stops(tmp_path):
                              capture_output=True, text=True, timeout=120)
     assert no_card.returncode != 0 and "CUDA" in no_card.stderr
     assert "serving on" not in no_card.stdout
+
+
+def test_upgrade_service_skipped_past_the_last_port(tmp_path, monkeypatch):
+    """A web port above 65035 leaves no port + 500 for the upgrade service:
+    ``start_system`` serves without it, as where that port is taken (the
+    reference raises ``OverflowError`` there)."""
+    import socket
+
+    from lsd_tpu_torch.__main__ import start_system, stop_system
+    rec = FrameRecorder(str(tmp_path / "rec"))
+    rec.write(make_frame_dict(ts=1_000_000))
+    cfg = dict(input=dict(mode="offline", data_path=rec.log_dir), pipeline=[["Source", "Sink"]],
+               system=dict(record=dict(use=False, path=str(tmp_path / "records"))))
+    monkeypatch.setenv("LSD_TPU_WEB_STORE", str(tmp_path / "store.json"))
+    for port in range(65535, 65035, -1):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        break
+    trt.clear_interfaces()
+    p, srv, upgrade, got = start_system(_write_config(tmp_path / "cfg.yaml", cfg), None,
+                                        "127.0.0.1", port, device="cpu")
+    try:
+        assert got == port and upgrade is None
+        status = json.loads(_post(f"http://127.0.0.1:{port}/v1/status")[1])
+        assert status["status"] == "Running"
+    finally:
+        stop_system(p, srv, upgrade)
+        trt.clear_interfaces()
