@@ -258,6 +258,36 @@ Phases, in order; any failure exits non-zero:
    MD_UPDATE_COS and relative norm gap <= MD_UPDATE_GAP, and one real
    step finite.  Every group start has a
    60 s timeout and every spawned rank ends with the phase.
+15. The rest of ``lsd_tpu_torch/tools`` (``run_tools``), each part with the
+   launch counts from 0.  (a) ``tools.eval_formats`` at full width: CAP-point
+   ``CircleSim`` scans (seed 33, the tool's rest and ramp), cut from the
+   tool's 150 to N_FMT_SCANS, written as a rosbag (``tools.rosbag``) and as
+   NCLT ``velodyne_hits.bin`` + ``ms25.csv`` (``tools.nclt``), converted, and
+   each replayed through ``Perception`` on the card: ATE within
+   FMT_ATE_MARGIN_M of the JAX package's figure at this cut (JAX_FMT_ATE),
+   at least FMT_MIN_FRAMES of the scans paired with the truth, the p2p
+   kernel 3 times per integrated scan and held against its plain version on
+   the inputs of one rosbag replay's call.  (b) ``tools.export`` of the
+   shipped 0.2 m checkpoint at EXPORT_POINTS points on the card
+   (``torch.export``), loaded back: its outputs within EXPORT_ATOL of the
+   eager module's on a scene of the detection evaluation; export and load
+   seconds, ms per call of both.  (c) ``tools.profile.profile_lio_replay``
+   over the first N_PROFILE_FRAMES frames of (a)'s rosbag recording (cut
+   from 100), a trace in a temporary directory: 4 launches per frame.  (d)
+   ``tools.loc_diag`` with the side LIO over the first N_LOC_DIAG frames of
+   12b's drive (cut from all) on 12b's map: RMSE x and y within
+   LOC_DIAG_ATOL_M of 12b's own run over the same frames, 3 launches per
+   frame.  (e) ``tools.campaign_diag`` on 12b's map with its world's
+   parameters: the five ablations' ATEs on the card within
+   CAMPAIGN_DIAG_ATOL_M of the CPU's.  (f) ``tools.roofline.report``:
+   measured peaks beside the data sheet's, the LIO step and its phases at
+   bench shapes (ROOFLINE_REPS calls a timing, cut from 30).  (g)
+   ``tools.bench_p2p`` over N_BENCH_P2P_SCANS scans (cut from 100): B1, the
+   reference's route and the plain version per call, the routes' gap, the
+   step with 4 launches per scan.  (h) ``tools.schur_chip_bench`` at its
+   defaults (1,192 nodes, an 8-rank plan): ms per round, the all-reduce's
+   bytes.  (i) ``tools.scaling`` without its CPU groups, SCALING_REPS pass a
+   timing (cut from 3); its interconnect figures are projections.
 
 Each path starts with the launch counts at 0 and reads them at its end.  It
 prints one JSON line per path, the card's name and power limit, one
@@ -435,6 +465,20 @@ MD_INIT_TIMEOUT_S, MD_MERGE_TIMEOUT_S = 60, 600
 # gap at most 1.2e-4; an optimizer configured otherwise, or a gradient
 # averaged wrongly, moves them by orders of magnitude)
 MD_UPDATE_COS, MD_UPDATE_GAP = 0.999, 5e-3
+# phase 15 (see the docstring).  The format chains' ATE bars were set before
+# the first card run from the JAX package's tool at this cut on the CPU (jax
+# 0.9.0: python -m lsd_tpu.tools.eval_formats --scans 60 --platform cpu; 60 and
+# 58 frames paired); NCLT's packet framing drops scans, hence FMT_MIN_FRAMES.
+# The profile's trace holds thousands of launches a step (233 MB for 8 steps on
+# an H100), hence N_PROFILE_FRAMES.  12b's side-LIO run and loc_diag run under
+# deterministic algorithms: with the default ones the two parted by up to
+# 6 mm over the same 40 frames on the card
+N_FMT_SCANS, FMT_ATE_MARGIN_M, FMT_MIN_FRAMES = 60, 0.05, 0.9
+JAX_FMT_ATE = {"rosbag": 0.13428257211903147, "nclt": 0.33368374371429477}
+EXPORT_POINTS, EXPORT_ATOL = 2 ** 17, 1e-5
+N_PROFILE_FRAMES, N_LOC_DIAG, LOC_DIAG_ATOL_M = 8, 40, 1e-3
+LOC_EVAL_MAP_LAPS, CAMPAIGN_DIAG_ATOL_M = 1.15, 1e-3   # tools/loc_eval.py:build_map's laps
+ROOFLINE_REPS, N_BENCH_P2P_SCANS, SCALING_REPS = 10, 30, 1
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 
@@ -3006,19 +3050,34 @@ def run_scoring_evaluate(dev):
 
 
 def loc_eval_run(map_dir, root, lio_fusion, dev):
-    """One ``tools.loc_eval.run`` over the LOC_EVAL world; (report, launches)."""
+    """One ``tools.loc_eval.run`` over the LOC_EVAL world; (report, launches,
+    {stamp (us): the pose ``Localizer.process_scan`` returned, or None})."""
     from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam.localization import Localizer
     from lsd_tpu_torch.tools import loc_eval
+    poses, process_scan = {}, Localizer.process_scan
+
+    def tapped(self, points, mask, stamp_us, **kwargs):
+        out = process_scan(self, points, mask, stamp_us=stamp_us, **kwargs)
+        pose = out.get("pose")
+        poses[int(stamp_us)] = None if pose is None else np.asarray(pose, float).copy()
+        return out
     n0 = p2p_reduce.launches
-    rep = loc_eval.run(map_dir, laps=LOC_EVAL_LAPS, radius=LOC_EVAL_RADIUS, points=LOC_EVAL_POINTS,
-                       dropout=None, out_root=os.path.join(root, "loc"), lio_fusion=lio_fusion,
-                       world="fig8", progress=log, device=dev)
-    return rep, p2p_reduce.launches - n0
+    Localizer.process_scan = tapped
+    try:
+        rep = loc_eval.run(map_dir, laps=LOC_EVAL_LAPS, radius=LOC_EVAL_RADIUS,
+                           points=LOC_EVAL_POINTS, dropout=None,
+                           out_root=os.path.join(root, "loc"), lio_fusion=lio_fusion,
+                           world="fig8", progress=log, device=dev)
+    finally:
+        Localizer.process_scan = process_scan
+    return rep, p2p_reduce.launches - n0, poses
 
 
 def run_scoring_loc_eval(dev, root):
     """12b: ``tools.loc_eval.build_map`` and ``run`` through ``Perception`` on
-    ``dev``; returns the report and the map's recording root."""
+    ``dev``; returns the report, the map, the map's recording root and the
+    localizer's poses by stamp in the run with the side LIO."""
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     from lsd_tpu_torch.tools import loc_eval
     map_dir, map_root = os.path.join(root, "map"), os.path.join(root, "map_src")
@@ -3039,9 +3098,20 @@ def run_scoring_loc_eval(dev, root):
         fail(f"scoring (loc_eval map): p2p_reduce launched {built['launches']} times over "
              f"{built['scans']} scans, expected max_iters (3) x (scans + the warm-up step)")
     report = dict(map=built)
+    fusion_poses = None
     for fusion in (True, False):
         t0 = time.perf_counter()
-        rep, launches = loc_eval_run(map_dir, root, fusion, dev)
+        # the side LIO's run under deterministic algorithms: phase 15d holds
+        # tools.loc_diag to its poses, and the side LIO's cold start carries
+        # the float atomics' run-to-run differences to millimetres
+        was = deterministic() if fusion else None
+        try:
+            rep, launches, poses = loc_eval_run(map_dir, root, fusion, dev)
+        finally:
+            if fusion:
+                deterministic(was)
+        if fusion:
+            fusion_poses = poses
         rep.update(launches=launches, phase_s=time.perf_counter() - t0)
         key = "loc" if fusion else "loc_no_fusion"
         report[key] = rep
@@ -3070,7 +3140,7 @@ def run_scoring_loc_eval(dev, root):
             fail(f"scoring ({key}): tracked RMSE x {rep['rmse_x_tracking_m']} m, y "
                  f"{rep['rmse_y_tracking_m']} m, heading {rep['rmse_heading_tracking_deg']} deg; "
                  f"expected below {LOC_EVAL_RMSE_M} m and {LOC_EVAL_HEADING_DEG} deg")
-    return report, map_dir, map_root
+    return report, map_dir, map_root, fusion_poses
 
 
 def run_scoring_detection(dev, mot_frames):
@@ -3212,9 +3282,11 @@ def run_scoring_calibration(map_dir, map_root):
     return report
 
 
-def run_scoring(dev, card, mot_frames):
+def run_scoring(dev, card, mot_frames, root):
     """Phase 12: the reference's scoring path on the port, each part with the
-    launch counts from 0."""
+    launch counts from 0, its files under ``root``.  Returns the report and
+    what phase 15 reads of 12b: its map, the recording of its drive and the
+    localizer's poses by stamp in the drive with the side LIO."""
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     t_phase = time.perf_counter()
     report = dict(card=card, bars=dict(
@@ -3235,27 +3307,28 @@ def run_scoring(dev, card, mot_frames):
         + "; ".join(f"{r['scenario']} ATE {r['tpu_ate_m']} m, {r['tpu_ms']} ms/scan, degen "
                     f"{r['max_degen_dirs']}, weak {r['max_weak_dirs']}, {r['launches']} launches"
                     for r in report["evaluate"]["rows"]))
-    with tempfile.TemporaryDirectory() as root:
-        p2p_reduce.launches = 0
-        loc, map_dir, map_root = run_scoring_loc_eval(dev, root)
-        report["loc_eval"] = loc
-        report["launches_loc_eval_map"] = loc["map"]["launches"]
-        report["launches_loc_eval_loc"] = loc["loc"]["launches"]
-        log(f"scoring (loc_eval): map {loc['map']}; localisation {loc['loc']}; without the side "
-            f"LIO {loc['loc_no_fusion']}")
-        p2p_reduce.launches = 0
-        report["eval_detection"] = run_scoring_detection(dev, mot_frames)
-        report["launches_eval_detection"] = p2p_reduce.launches
-        log(f"scoring (eval_detection): {report['eval_detection']}")
-        p2p_reduce.launches = 0
-        report["calibration"] = run_scoring_calibration(map_dir, map_root)
-        report["launches_calibration"] = p2p_reduce.launches
-        log(f"scoring (calibration): {report['calibration']}")
+    os.makedirs(root, exist_ok=True)
+    p2p_reduce.launches = 0
+    loc, map_dir, map_root, fusion_poses = run_scoring_loc_eval(dev, root)
+    report["loc_eval"] = loc
+    report["launches_loc_eval_map"] = loc["map"]["launches"]
+    report["launches_loc_eval_loc"] = loc["loc"]["launches"]
+    log(f"scoring (loc_eval): map {loc['map']}; localisation {loc['loc']}; without the side "
+        f"LIO {loc['loc_no_fusion']}")
+    p2p_reduce.launches = 0
+    report["eval_detection"] = run_scoring_detection(dev, mot_frames)
+    report["launches_eval_detection"] = p2p_reduce.launches
+    log(f"scoring (eval_detection): {report['eval_detection']}")
+    p2p_reduce.launches = 0
+    report["calibration"] = run_scoring_calibration(map_dir, map_root)
+    report["launches_calibration"] = p2p_reduce.launches
+    log(f"scoring (calibration): {report['calibration']}")
     for key in ("launches_eval_detection", "launches_calibration"):
         if report[key] != 0:
             fail(f"scoring: p2p_reduce launched {report[key]} times in {key[9:]}")
     report["phase_s"] = time.perf_counter() - t_phase
-    return report
+    return report, dict(map_dir=map_dir, loc_rec=os.path.join(root, "loc", "rec"),
+                        fusion_poses=fusion_poses)
 
 
 def rehearse_scoring():
@@ -3283,7 +3356,8 @@ def rehearse_scoring():
                    scores=rng.random(6)) for k in range(20)]
     g["fail"] = lenient
     try:
-        report = run_scoring(torch.device("cpu"), "CPU rehearsal", frames)
+        with tempfile.TemporaryDirectory() as root:
+            report, _ = run_scoring(torch.device("cpu"), "CPU rehearsal", frames, root)
     finally:
         g["fail"] = strict
     print(json.dumps({"scoring": report}))
@@ -4120,6 +4194,303 @@ def run_multi_device(dev, card, map_a, map_b, root):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the last tools of lsd_tpu/tools
+
+
+def run_format_chains(dev, root):
+    """15a: ``tools.eval_formats`` at full width: the simulator written as a
+    rosbag and as NCLT files, converted by ``tools.rosbag`` and
+    ``tools.nclt``, each replayed through ``Perception`` on ``dev``; the
+    kernel held against its plain version on the inputs of one of the
+    rosbag replay's calls.  Returns the report and the rosbag recording."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam import lio as lio_mod
+    from lsd_tpu_torch.tools import eval_formats, nclt, rosbag
+
+    sim = CircleSim(SimConfig(radius=8.0, omega=0.8, n_scans=N_FMT_SCANS, points_per_scan=CAP,
+                              seed=33, point_noise=0.01, rest_time=1.5, ramp_time=1.0))
+    data = sim.generate(capacity=CAP, imu_capacity=IMU_CAP)
+    gts = [d[5] for d in data]
+    gt_ts = [1_700_000_000 * 1_000_000 + k * 100_000 for k in range(N_FMT_SCANS)]
+    t0 = time.perf_counter()
+    bag = eval_formats.export_rosbag(sim, data, os.path.join(root, "seq.bag"))
+    recs = dict(rosbag=rosbag.rosbag_to_pkl(bag, os.path.join(root, "rec_bag")))
+    hits, ms25 = eval_formats.export_nclt(sim, data, os.path.join(root, "nclt"))
+    recs["nclt"] = nclt.convert_nclt(hits, os.path.join(root, "rec_nclt"), ms25_csv=ms25)
+    report = dict(scans=N_FMT_SCANS, points=CAP, write_and_convert_s=time.perf_counter() - t0,
+                  bag_bytes=os.path.getsize(bag), hits_bytes=os.path.getsize(hits),
+                  bars=dict(jax_ate_m=JAX_FMT_ATE, margin_m=FMT_ATE_MARGIN_M,
+                            min_frames=FMT_MIN_FRAMES * N_FMT_SCANS))
+    for name, rec in recs.items():
+        timer = CallTimer(lio_mod, "p2p_reduce")
+        p2p_reduce.launches = 0
+        try:
+            r = eval_formats.replay_and_score(rec, sim, gts, gt_ts_us=gt_ts, device=dev)
+        finally:
+            timer.restore()
+        r.update(launches=p2p_reduce.launches,
+                 ms_per_frame=r["busy_s"] / max(r["integrated"], 1) * 1e3)
+        report[name] = r
+        log(f"tools (eval_formats, {name}): {r}")
+        if not abs(r["ate"] - JAX_FMT_ATE[name]) <= FMT_ATE_MARGIN_M:
+            fail(f"tools (eval_formats, {name}): ATE {r['ate']} m is not within "
+                 f"{FMT_ATE_MARGIN_M} m of the JAX package's {JAX_FMT_ATE[name]} m")
+        if not r["frames"] >= FMT_MIN_FRAMES * N_FMT_SCANS:
+            fail(f"tools (eval_formats, {name}): {r['frames']} of {N_FMT_SCANS} scans paired "
+                 f"with the truth, expected at least {FMT_MIN_FRAMES:.0%}")
+        if r["launches"] != 3 * r["integrated"]:
+            fail(f"tools (eval_formats, {name}): p2p_reduce launched {r['launches']} times over "
+                 f"{r['integrated']} integrated scans, expected max_iters (3) x scans")
+        if name == "rosbag":
+            args = timer.args[len(timer.args) // 2]
+            report["p2p_max_abs_err"] = compare_p2p(args[:8], args[8])
+    return report, recs["rosbag"]
+
+
+def run_export(dev):
+    """15b: ``tools.export`` of the shipped 0.2 m checkpoint at EXPORT_POINTS
+    on ``dev``, loaded back and held against the eager module on a scene."""
+    import torch
+    from lsd_tpu_torch.convert import detector_params_from_flax
+    from lsd_tpu_torch.detection.post import PostProcessConfig
+    from lsd_tpu_torch.models import CenterPointDetector, DetectorConfig
+    from lsd_tpu_torch.models.params_io import load_params
+    from lsd_tpu_torch.runtime.modules import shipped_detector_weights
+    from lsd_tpu_torch.tools import export
+    from lsd_tpu_torch.tools.profile_detector import eval_scenes
+
+    cfg = DetectorConfig.reference_capacity()
+    state = detector_params_from_flax(load_params(shipped_detector_weights(cfg)))
+    scene = eval_scenes(n_batches=1)[0]
+    n = len(scene["points"])
+    pts = np.zeros((EXPORT_POINTS, 4), np.float32)
+    mask = np.zeros(EXPORT_POINTS, bool)
+    pts[:n], mask[:n] = scene["points"][:, :4], scene["mask"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path = export.export_detector(state, cfg, point_capacity=EXPORT_POINTS,
+                                      out_path=os.path.join(root, "det.pt2"), device=dev)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        det = export.ExportedDetector(path)
+        load_s = time.perf_counter() - t0
+        artifact_bytes = os.path.getsize(path)
+    model = CenterPointDetector(cfg)
+    model.load_state_dict(state)
+    eager = export.DetectorInference(model, PostProcessConfig()).to(dev).eval()
+    p, m = torch.as_tensor(pts, device=dev), torch.as_tensor(mask, device=dev)
+    with torch.no_grad():
+        got, want = det(p, m), eager(p, m)
+        max_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        ms = time_ms(lambda: det(p, m), n=20)
+        eager_ms = time_ms(lambda: eager(p, m), n=20)
+    kept = int(got[3].sum())
+    report = dict(points=EXPORT_POINTS, scene_points=int(mask.sum()), export_s=export_s,
+                  load_s=load_s, artifact_bytes=artifact_bytes, meta=det.meta, kept=kept,
+                  max_abs_err=max_err, ms_per_call=ms, eager_ms_per_call=eager_ms)
+    log(f"tools (export): {report}")
+    if det.meta["device"] != "cuda" or det.device.type != "cuda":
+        fail(f"tools (export): the artifact runs on {det.meta['device']}, expected the card")
+    if not (max_err <= EXPORT_ATOL and torch.equal(got[3], want[3]) and kept >= 1):
+        fail(f"tools (export): the artifact's outputs lie {max_err} from the eager module's "
+             f"(bar {EXPORT_ATOL}), kept {kept} boxes, keep masks equal "
+             f"{bool(torch.equal(got[3], want[3]))}")
+    return report
+
+
+def run_profile_replay(dev, rec_bag):
+    """15c: ``tools.profile.profile_lio_replay`` over (a)'s rosbag recording,
+    with a trace in a temporary directory."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.tools.profile import profile_lio_replay
+    p2p_reduce.launches = 0
+    with tempfile.TemporaryDirectory() as trace:
+        rep = profile_lio_replay(rec_bag, trace, max_frames=N_PROFILE_FRAMES, device=dev)
+        rep["trace_bytes"] = os.path.getsize(os.path.join(trace, "trace.json"))
+    rep["launches"] = p2p_reduce.launches
+    log(f"tools (profile): {rep}")
+    if rep["frames"] != N_PROFILE_FRAMES or rep["launches"] != 4 * rep["frames"]:
+        fail(f"tools (profile): {rep['frames']} frames, p2p_reduce launched {rep['launches']} "
+             f"times; expected {N_PROFILE_FRAMES} and max_iters (4) x frames")
+    return rep
+
+
+def loc_diag_rmse(rec_root, poses, n):
+    """RMSE x and y (m) and the scored count of the poses by stamp over the
+    first ``n`` frames of the recording at ``rec_root``, scored as
+    ``tools/loc_diag.py`` scores them (errors rounded to mm)."""
+    z = np.load(os.path.join(rec_root, "gt.npz"))
+    ex, ey = [], []
+    for ts, g in list(zip(z["ts_us"], z["gt"]))[:n]:
+        T = poses.get(int(ts))
+        if T is not None:
+            ex.append(round(float(T[0, 3] - g[0, 3]), 3))
+            ey.append(round(float(T[1, 3] - g[1, 3]), 3))
+    rmse = lambda e: round(float(np.sqrt(np.mean(np.square(e)))), 3) if e else None
+    return rmse(ex), rmse(ey), len(ex)
+
+
+def run_loc_diag(dev, scoring):
+    """15d: ``tools.loc_diag`` with the side LIO over the first N_LOC_DIAG
+    frames of 12b's drive, on 12b's map, against 12b's own run."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.tools import loc_diag
+    p2p_reduce.launches = 0
+    was = deterministic()           # as 12b's run with the side LIO
+    try:
+        rows, summ = loc_diag.run(scoring["map_dir"], scoring["loc_rec"], lio_fusion=True,
+                                  max_frames=N_LOC_DIAG, progress=log, device=dev)
+    finally:
+        deterministic(was)
+    launches = p2p_reduce.launches
+    rx, ry, scored = loc_diag_rmse(scoring["loc_rec"], scoring["fusion_poses"], N_LOC_DIAG)
+    report = dict(summary=summ, launches=launches, phase12b=dict(rmse_x=rx, rmse_y=ry,
+                                                                 scored=scored))
+    log(f"tools (loc_diag): {report}")
+    if summ["frames"] != N_LOC_DIAG or summ["scored"] != scored:
+        fail(f"tools (loc_diag): {summ['frames']} frames, {summ['scored']} scored; 12b's run "
+             f"scored {scored} of the first {N_LOC_DIAG}")
+    if scored and not (abs(summ["rmse_x"] - rx) <= LOC_DIAG_ATOL_M
+                       and abs(summ["rmse_y"] - ry) <= LOC_DIAG_ATOL_M):
+        fail(f"tools (loc_diag): RMSE x {summ['rmse_x']} m, y {summ['rmse_y']} m; 12b's own run "
+             f"over the same frames {rx} m, {ry} m (bar {LOC_DIAG_ATOL_M} m)")
+    if launches != 3 * N_LOC_DIAG:
+        fail(f"tools (loc_diag): p2p_reduce launched {launches} times over {N_LOC_DIAG} frames, "
+             f"expected the side LIO's max_iters (3) x frames")
+    return report
+
+
+def run_campaign_diag(dev, map_dir):
+    """15e: ``tools.campaign_diag`` on 12b's map, its world's parameters, on
+    the card and on the CPU."""
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.tools import campaign_diag
+    kw = dict(laps=LOC_EVAL_MAP_LAPS, radius=LOC_EVAL_RADIUS, speed=5.0, points=LOC_EVAL_POINTS)
+    p2p_reduce.launches = 0
+    t0 = time.perf_counter()
+    card = campaign_diag.diagnose(map_dir, device=dev, **kw)
+    card_s = time.perf_counter() - t0
+    launches = p2p_reduce.launches
+    cpu = campaign_diag.diagnose(map_dir, device="cpu", **kw)
+    tags = [k for k, v in cpu.items() if isinstance(v, dict) and "ate_after_m" in v]
+    worst = max(abs(card[t][k] - cpu[t][k]) for t in tags for k in ("ate_before_m", "ate_after_m"))
+    report = dict(card=card, cpu=cpu, worst_ate_gap_m=worst, card_s=card_s, launches=launches)
+    log(f"tools (campaign_diag): {report}")
+    if len(tags) != 5 or not worst <= CAMPAIGN_DIAG_ATOL_M:
+        fail(f"tools (campaign_diag): {len(tags)} ablations, ATEs on the card up to {worst} m "
+             f"from the CPU's (bar {CAMPAIGN_DIAG_ATOL_M} m)")
+    return report
+
+
+def run_tools(dev, card, scoring):
+    """Phase 15: the tools of ``lsd_tpu_torch/tools`` that phases 1-14 do not
+    run (see the docstring), each with the launch counts from 0."""
+    import torch
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.tools import bench_p2p, roofline, scaling, schur_chip_bench
+    t_phase = time.perf_counter()
+    report = dict(card=card, seconds={})
+
+    def part(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        p2p_reduce.launches = 0
+        report[name] = out = fn(*args, **kwargs)
+        report["launches"][name] = p2p_reduce.launches
+        report["seconds"][name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        report["eval_formats"], rec_bag = run_format_chains(dev, root)
+        report["seconds"]["eval_formats"] = time.perf_counter() - t0
+        report["launches"] = {f"eval_formats_{k}": report["eval_formats"][k]["launches"]
+                              for k in ("rosbag", "nclt")}
+        part("profile", run_profile_replay, dev, rec_bag)
+    part("export", run_export, dev)
+    part("loc_diag", run_loc_diag, dev, scoring)
+    part("campaign_diag", run_campaign_diag, dev, scoring["map_dir"])
+    part("roofline", roofline.report, dev, n_rep=ROOFLINE_REPS)
+    log(f"tools (roofline): {report['roofline']}")
+    bench = part("bench_p2p", bench_p2p.bench, scans=N_BENCH_P2P_SCANS, device=dev)
+    log(f"tools (bench_p2p): {bench}")
+    if not bench["lio_step"]["finite"]:
+        fail(f"tools (bench_p2p): the filter state is not finite after {N_BENCH_P2P_SCANS} scans")
+    if bench["lio_step"]["p2p_launches"] != 4 * N_BENCH_P2P_SCANS:
+        fail(f"tools (bench_p2p): p2p_reduce launched {bench['lio_step']['p2p_launches']} times "
+             f"over {N_BENCH_P2P_SCANS} scans, expected max_iters (4) x scans")
+    schur = part("schur_chip_bench", schur_chip_bench.bench,
+                 schur_chip_bench.build_merge_shaped_graph(1192, 432, 1173), device=dev)
+    log(f"tools (schur_chip_bench): {schur}")
+    sc = part("scaling", scaling.scaling_report, reps=SCALING_REPS, virtual=False, device=dev)
+    log(f"tools (scaling): {sc}")
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools: phase 15 took {report['phase_s']:.1f} s; by part {report['seconds']}")
+    return report
+
+
+def rehearse_tools():
+    """Phase 15 on the host's CPU at full size, to check its control flow and
+    bars before a card run, after 12b's map and drive (``run_scoring_loc_eval``,
+    its bars judged too).  The CPU launches no kernel, so the launch counts are reported, not judged,
+    and the kernel is not compared; the export runs on the CPU, which the
+    card run refuses; CUDA events, synchronizes and ``time_ms`` get
+    stand-ins, and ``measure_peaks`` runs at a small size:
+
+        python3 -c "import chip_smoke; chip_smoke.rehearse_tools()"
+
+    ~5 min on 4 cores."""
+    import torch
+    from lsd_tpu_torch.tools import roofline
+    g = globals()
+    saved = {k: g[k] for k in ("fail", "time_ms", "compare_p2p")}
+
+    class Event:
+        def __init__(self, **kw):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    def lenient(msg):
+        if "p2p_reduce launched" not in msg and "the artifact runs on cpu" not in msg:
+            saved["fail"](msg)
+        log("rehearsal, not judged: " + msg)
+
+    def host_ms(fn, n=N_TIMING):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    cuda = {k: getattr(torch.cuda, k) for k in ("Event", "synchronize", "empty_cache")}
+    peaks = roofline.measure_peaks
+    g.update(fail=lenient, time_ms=host_ms, compare_p2p=lambda args, max_resid: 0.0)
+    torch.cuda.Event, torch.cuda.synchronize = Event, lambda *a: None
+    torch.cuda.empty_cache = lambda: None
+    roofline.measure_peaks = lambda device=None: peaks(size_mm=256, size_copy_mb=4, inner=2,
+                                                       device=device)
+    dev = torch.device("cpu")
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            _, map_dir, _, poses = run_scoring_loc_eval(dev, root)
+            report = run_tools(dev, "CPU rehearsal", dict(
+                map_dir=map_dir, loc_rec=os.path.join(root, "loc", "rec"), fusion_poses=poses))
+    finally:
+        g.update(saved)
+        for k, v in cuda.items():
+            setattr(torch.cuda, k, v)
+        roofline.measure_peaks = peaks
+    print(json.dumps({"tools": report}))
+    return report
+
+
 def main() -> None:
     # a fatal signal prints the stack of every Python thread, the one that
     # took it marked "Current thread" (a thread without Python frames, such
@@ -4143,7 +4514,8 @@ def main() -> None:
 
     card = card_line()
     dev = torch.device("cuda", 0)
-    # phase 14 merges the maps of phases 4 and 10a: they are kept here
+    # phase 14 merges the maps of phases 4 and 10a, and phase 15 reads phase
+    # 12b's map and drive: they are kept here
     keep = tempfile.mkdtemp(prefix="chip_smoke_")
     t_start = time.perf_counter()
     phase_s = {}
@@ -4265,7 +4637,8 @@ def main() -> None:
     phase_done("11 training")
 
     # ---- 12. the scoring path -------------------------------------------------
-    scoring_report = run_scoring(dev, card, drive_frames)
+    scoring_report, scoring_files = run_scoring(dev, card, drive_frames,
+                                                os.path.join(keep, "scoring"))
     for key in ("evaluate", "loc_eval_map", "loc_eval_loc", "eval_detection", "calibration"):
         p2p_report[f"launches_{key}"] = scoring_report[f"launches_{key}"]
     phase_done("12 scoring")
@@ -4277,7 +4650,6 @@ def main() -> None:
 
     # ---- 14. multi-device code --------------------------------------------------
     md_report = run_multi_device(dev, card, map_phase4, map_phase10a, keep)
-    shutil.rmtree(keep, ignore_errors=True)
     p2p_report["max_abs_err"] = max(p2p_report["max_abs_err"],
                                     md_report["sharded_map"]["p2p_max_abs_err"])
     p2p_report["launches_parallel_sharded_map"] = md_report["sharded_map"]["p2p_launches"]
@@ -4288,6 +4660,15 @@ def main() -> None:
     for key in ("pgo", "merge", "trainer"):
         p2p_report[f"launches_parallel_{key}"] = md_report[key]["p2p_launches"]
     phase_done("14 multi-device")
+
+    # ---- 15. the last tools -------------------------------------------------------
+    tools_report = run_tools(dev, card, scoring_files)
+    shutil.rmtree(keep, ignore_errors=True)
+    p2p_report["max_abs_err"] = max(p2p_report["max_abs_err"],
+                                    tools_report["eval_formats"]["p2p_max_abs_err"])
+    for key, n in tools_report["launches"].items():
+        p2p_report[f"launches_tools_{key}"] = n
+    phase_done("15 tools")
     log(f"seconds by phase: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     print(json.dumps({"lio_step": lio_report}))
@@ -4304,6 +4685,7 @@ def main() -> None:
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"online": online_report}))
     print(json.dumps({"multi_device": md_report}))
+    print(json.dumps({"tools": tools_report}))
     print(card)
     print(json.dumps({"kernels": [p2p_report]}))
     print(json.dumps({"ok": True, "device": {

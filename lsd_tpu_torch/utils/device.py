@@ -35,11 +35,12 @@ def to_device(a: Union[np.ndarray, torch.Tensor, list, tuple, float, int, bool],
     A tensor already there passes through without a copy.  Host data bound
     for a card goes through pinned memory as a non-blocking copy: a plain
     copy from pageable memory makes the host wait for all queued work of
-    the stream (a host sync per upload)."""
+    the stream (a host sync per upload).  A program being traced
+    (``torch.export``) records a plain copy: tracing cannot pin memory."""
     if isinstance(a, torch.Tensor) and a.device == device:
         return a if dtype is None else a.to(dtype)
     t = torch.as_tensor(a, dtype=dtype)
-    if device.type == "cuda" and t.device.type == "cpu":
+    if device.type == "cuda" and t.device.type == "cpu" and not torch.compiler.is_compiling():
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 

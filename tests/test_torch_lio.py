@@ -233,7 +233,13 @@ def test_import_leaves_jax_out():
             "lsd_tpu_torch.slam.loc_output", "lsd_tpu_torch.comms.zcm_udpm",
             "lsd_tpu_torch.comms.zcm_ipc", "lsd_tpu_torch.comms.message_server",
             "lsd_tpu_torch.web.server", "lsd_tpu_torch.web.upgrade",
-            "lsd_tpu_torch.tools.recv"} <= set(mods)
+            "lsd_tpu_torch.tools.recv", "lsd_tpu_torch.tools.rosbag", "lsd_tpu_torch.tools.kitti",
+            "lsd_tpu_torch.tools.nclt", "lsd_tpu_torch.tools.postprocessing",
+            "lsd_tpu_torch.tools.eval_formats", "lsd_tpu_torch.tools.export",
+            "lsd_tpu_torch.tools.profile", "lsd_tpu_torch.tools.loc_diag",
+            "lsd_tpu_torch.tools.campaign_diag", "lsd_tpu_torch.tools.roofline",
+            "lsd_tpu_torch.tools.bench_p2p", "lsd_tpu_torch.tools.schur_chip_bench",
+            "lsd_tpu_torch.tools.scaling"} <= set(mods)
     assert len(mods) > 50
     pkgs = sorted({m.rsplit(".", 1)[0] for m in mods})
     # lsd_tpu_torch.native is a package with no module besides its __init__
