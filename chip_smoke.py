@@ -84,7 +84,7 @@ Phases, in order; any failure exits non-zero:
    at the WOD IoUs within DET_AP_MARGIN of the JAX package's figure on the
    same scenes (JAX_MEAN_AP).  Then the sequence of the reference's
    ``DetectModule.process`` over 20 frames of one scene seen from a vehicle
-   at 10 m/s (``tools/profile_detector.py:ego_drive``/``detect_frame``):
+   at 10 m/s (``tools/profile_detector.py:ego_drive``/``detect_module``):
    predict makes no host sync; the tracker follows at least
    DRIVE_MIN_OBJECTS of the scene's objects with one ID each over at least
    DRIVE_MIN_FRAMES frames, at speeds under DRIVE_MAX_SPEED m/s; the p2p
@@ -1510,8 +1510,8 @@ def mot_frames(history, objects, step):
 
 
 def drive_detector(dev, capacity, ins_history=False, drive_frames=None):
-    """``N_DRIVE`` frames of ``ego_drive`` through the reference's
-    ``DetectModule.process`` sequence at ``capacity``; returns the report and
+    """``N_DRIVE`` frames of ``ego_drive`` through ``DetectModule.process``
+    (``profile_detector.detect_module``) at ``capacity``; returns the report and
     adds the drive's frames, as ``evaluate_mot`` takes them, to
     ``drive_frames``.
     With ``ins_history`` the accumulator ages its history by the motion as
@@ -1519,10 +1519,9 @@ def drive_detector(dev, capacity, ins_history=False, drive_frames=None):
     the tracker still by the drive's motion (unjudged)."""
     import torch
     from lsd_tpu_torch.detection.accumulate import FrameAccumulator
-    from lsd_tpu_torch.detection.tracker import Tracker3D, TrackerConfig
     from lsd_tpu_torch.runtime.modules import build_detector_predict_fn
-    from lsd_tpu_torch.tools.profile_detector import (CAPACITIES, detect_frame, ego_drive,
-                                                      frame_profile, roi_filter)
+    from lsd_tpu_torch.tools.profile_detector import (CAPACITIES, detect_module, ego_drive,
+                                                      frame_dict, frame_profile)
 
     class InsAccumulator(FrameAccumulator):
         def push(self, points, mask, motion=None):
@@ -1532,11 +1531,11 @@ def drive_detector(dev, capacity, ins_history=False, drive_frames=None):
     predict = build_detector_predict_fn(det_cfg=cfg, with_seg=True, device=dev)
     n_all = N_DRIVE_WARM + N_DRIVE + N_DRIVE_PROFILED + N_DRIVE_SYNC
     frames, objects = ego_drive(n_all)
-    cap = frames[0][0].shape[0]
-    # warm-up on throwaway state (cuDNN picks its algorithms on first use)
-    acc0, trk0 = FrameAccumulator(2, cap), Tracker3D(TrackerConfig(), device=dev)
-    for f in frames[:N_DRIVE_WARM]:
-        detect_frame(predict, cfg, acc0, trk0, roi_filter(), *f)
+    dicts = [frame_dict(*f, k) for k, f in enumerate(frames)]
+    # warm-up on a throwaway module (cuDNN picks its algorithms on first use)
+    warm = detect_module(predict, cfg, dev)
+    for d in dicts[:N_DRIVE_WARM]:
+        warm.process(dict(d))
     events = []
 
     def timed_predict(*args):
@@ -1547,15 +1546,16 @@ def drive_detector(dev, capacity, ins_history=False, drive_frames=None):
         events.append((a, b))
         return out
 
-    acc = (InsAccumulator if ins_history else FrameAccumulator)(2, cap)
-    trk, filt = Tracker3D(TrackerConfig(), device=dev), roi_filter()
-    step = lambda f: detect_frame(timed_predict, cfg, acc, trk, filt, *f)
+    mod = detect_module(timed_predict, cfg, dev)
+    if ins_history:
+        mod.accumulator = InsAccumulator(2)      # process resizes it, keeping its class
+    step = lambda d: mod.process(dict(d))
     history, wall = [], []
-    drive = frames[:N_DRIVE]
-    for f in drive:
+    drive = dicts[:N_DRIVE]
+    for d in drive:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = step(f)
+        out = step(d)
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         history.append(out["objects"])
@@ -1564,7 +1564,7 @@ def drive_detector(dev, capacity, ins_history=False, drive_frames=None):
     tracked = [len(h) for h in history]
     if drive_frames is not None:
         drive_frames.extend(mot_frames(history, objects, 1.0))
-    report = dict(capacity=capacity, frames=N_DRIVE, points_per_frame=2 * cap,
+    report = dict(capacity=capacity, frames=N_DRIVE, points_per_frame=2 * mod.accumulator.cap,
                   ms_per_frame_median=float(np.median(wall[1:])),
                   ms_per_frame_min=float(np.min(wall[1:])), ms_per_frame_max=float(np.max(wall)),
                   predict_ms_median=float(np.median(predict_ms[1:])),
@@ -1575,8 +1575,9 @@ def drive_detector(dev, capacity, ins_history=False, drive_frames=None):
         return report
     # the frames after the drive: launches, device busy share and spans
     # under the profiler, then host syncs by site
-    prof = frame_profile(step, predict, frames[N_DRIVE:N_DRIVE + N_DRIVE_PROFILED],
-                         frames[N_DRIVE + N_DRIVE_PROFILED:])
+    mod.set_model(predict)
+    prof = frame_profile(mod, dicts[N_DRIVE:N_DRIVE + N_DRIVE_PROFILED],
+                         dicts[N_DRIVE + N_DRIVE_PROFILED:])
     report.update(
         launches_per_frame=prof["kernel_launches_per_frame"],
         device_busy_ms_per_frame=prof["device_busy_ms_per_frame"],

@@ -19,7 +19,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert import load_camera_params
 from ..models.mono3d import Mono3D, Mono3DConfig, decode_mono3d, maps_hwc
@@ -27,6 +26,7 @@ from ..models.params_io import load_params
 from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 from ..utils.image import load_image, resize_linear
 from ..utils.precision import set_slam_precision
+from ..utils.spans import span
 
 
 def shipped_mono3d_weights() -> Optional[str]:
@@ -108,7 +108,7 @@ class Mono3DInfer:
         """The camera frame at the model's input size, (H, W, 3) float32 in
         [0, 1] on the device, and the intrinsic scaled to match; (None,
         None) for bytes that do not decode."""
-        with record_function("camera/prep"):
+        with span("camera/prep"):
             img = load_image(image, rgb=True)
             if img is None:
                 return None, None
@@ -128,9 +128,9 @@ class Mono3DInfer:
     def _predict(self, img: torch.Tensor, Ks: np.ndarray):
         """Model, decode and the heat map's sigmoid, on the device:
         (boxes, scores, labels, valid, heat)."""
-        with record_function("camera/mono3d"):
+        with span("camera/mono3d"):
             preds = maps_hwc(self.model(img.permute(2, 0, 1)[None]))
-        with record_function("camera/decode"):
+        with span("camera/decode"):
             out = decode_mono3d(preds, to_device(np.asarray(Ks, np.float32), self.device),
                                 self.max_objects, self.cfg.stride)
             return (*out, torch.sigmoid(preds["heat"]))
@@ -144,7 +144,7 @@ class Mono3DInfer:
         if img is None:
             return dict(camera_objs=[], heat=None, K_scaled=None)
         out_d = self._predict(img, Ks)
-        with record_function("camera/fetch"):
+        with span("camera/fetch"):
             boxes, scores, labels, valid, heat = fetch(*out_d)
         out: List[Dict] = []
         for i in range(len(boxes)):

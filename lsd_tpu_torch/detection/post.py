@@ -7,10 +7,10 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.iou3d import nms_bev
 from ..utils.device import to_device
+from ..utils.spans import span
 
 
 class PostProcessConfig(NamedTuple):
@@ -24,7 +24,7 @@ def postprocess(cfg: PostProcessConfig, boxes: torch.Tensor, scores: torch.Tenso
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(K, 7), (K,), (K,) int, (K,) -> the top ``max_objects`` after the
     thresholds and NMS: (boxes, scores, labels, keep)."""
-    with record_function("detect/nms"):
+    with span("detect/nms"):
         table = to_device(np.asarray(cfg.score_thresh, np.float32), scores.device)
         thresh = table[torch.clamp(labels, 0, len(cfg.score_thresh) - 1)]
         ok = mask & (scores >= thresh)

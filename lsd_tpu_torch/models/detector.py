@@ -27,9 +27,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.voxelize import voxelize_dynamic
+from ..utils.spans import span
 from .bev_backbone import BEVBackbone
 from .center_head import HEATMAP_BIAS, CenterHead, decode_boxes
 from .vfe import (POINT_FEATURES, MeanVFE, PillarVFE, VoxelHeightEncoder, at_least_float32,
@@ -120,16 +120,16 @@ class CenterPointDetector(nn.Module):
         """points (N, 4), mask (N,) -> the BEV image (H, W, C) the backbone
         takes."""
         cfg = self.cfg
-        with record_function("detect/voxelize"):
+        with span("detect/voxelize"):
             voxels, coords, num_pts, vmask = voxelize_dynamic(
                 points, mask, cfg.voxel_size, cfg.pc_range, cfg.max_voxels,
                 cfg.max_points_per_voxel)
-        with record_function("detect/vfe"):
+        with span("detect/vfe"):
             if cfg.encoder == "voxel":
                 feats = self.mean_vfe(voxels, num_pts) * vmask[:, None]
             else:
                 feats = self.vfe(voxels, coords, num_pts) * vmask[:, None]
-        with record_function("detect/scatter"):
+        with span("detect/scatter"):
             if cfg.encoder == "voxel":
                 return scatter_to_voxel_bev(feats, coords, vmask, cfg.grid_hw, cfg.grid_z)
             if cfg.s2d_factor > 1:
@@ -150,17 +150,17 @@ class CenterPointDetector(nn.Module):
 
     def _maps(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """BEV images (B, C, H, W) -> the heads' maps, each (B, H, W, c)."""
-        with record_function("detect/backbone"):
+        with span("detect/backbone"):
             if self.cfg.encoder == "voxel":
                 # its GroupNorm is per BEV row of one image (VoxelHeightEncoder)
                 x = torch.cat([self.encoder(x[i:i + 1]) for i in range(x.shape[0])])
             x = self.backbone(x)
-        with record_function("detect/head"):
+        with span("detect/head"):
             maps = self.head(x)
         return {k: v.permute(0, 2, 3, 1) for k, v in maps.items()}
 
     def decode(self, preds: Dict[str, torch.Tensor]):
-        with record_function("detect/decode"):
+        with span("detect/decode"):
             return decode_boxes(preds, self.cfg.voxel_size, self.cfg.pc_range,
                                 stride=self.cfg.head_stride, max_boxes=self.cfg.max_boxes)
 

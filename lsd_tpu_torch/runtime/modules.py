@@ -55,6 +55,7 @@ from ..slam.map_editor import MapEditor
 from ..slam.mesh import texture_mesh
 from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 from ..utils.precision import set_slam_precision
+from ..utils.spans import span
 from ..utils.system import capture_journal
 from .interface import register_interface
 from .pipeline import DataBank, Module
@@ -581,7 +582,8 @@ def build_detector_predict_fn(weights: Optional[str] = None, det_cfg=None, with_
 
     @torch.inference_mode()
     def predict(points, mask):
-        points, mask = to_device(points, dev, torch.float32), to_device(mask, dev, torch.bool)
+        with span("detect/upload"):
+            points, mask = to_device(points, dev, torch.float32), to_device(mask, dev, torch.bool)
         preds = model(points[:, :4], mask)
         out = postprocess(pcfg, *model.decode(preds))
         return out + (preds["seg"],) if with_seg else out
@@ -697,12 +699,18 @@ class DetectModule(Module):
             out.append(o)
         return out
 
-    def set_model(self, predict_fn) -> None:
-        """predict_fn(points (N,4), mask) -> (boxes, scores, labels, mask)."""
+    def set_model(self, predict_fn, det_cfg=None) -> None:
+        """predict_fn(points (N,4), mask) -> (boxes, scores, labels, mask[,
+        freespace logits]).  ``process`` turns the logits into
+        ``d["freespace"]`` where it knows the ``DetectorConfig``: from
+        ``setup``, or ``det_cfg`` here (the one ``predict_fn`` was built at)."""
         self.predict_fn = predict_fn
+        if det_cfg is not None:
+            self.det_cfg_ref = det_cfg
 
     def process(self, d: Dict) -> Optional[Dict]:
-        frame = frame_from_dict(d)
+        with span("detect/parse"):
+            frame = frame_from_dict(d)
         motion = frame.motion if frame.motion_valid else None
         if frame.scan is None or self.predict_fn is None:
             # camera-only mono3D: the mono model still yields tracked
@@ -710,11 +718,12 @@ class DetectModule(Module):
             if getattr(self, "mono3d", None) is not None:
                 fused = self._run_mono3d_fusion(d, frame, [])
                 if fused:
-                    out = self.tracker.update(
-                        np.stack([o["box"] for o in fused]),
-                        np.asarray([o["score"] for o in fused], np.float32),
-                        np.asarray([o["label"] for o in fused], np.int32),
-                        dt=frame.timestep / 1e6, motion=motion)
+                    with span("detect/tracker"):
+                        out = self.tracker.update(
+                            np.stack([o["box"] for o in fused]),
+                            np.asarray([o["score"] for o in fused], np.float32),
+                            np.asarray([o["label"] for o in fused], np.int32),
+                            dt=frame.timestep / 1e6, motion=motion)
                     out = self.obj_filter.filter(out)
                     d["objects"] = out["objects"]
                     return d
@@ -726,14 +735,17 @@ class DetectModule(Module):
                 self.accumulator = type(self.accumulator)(
                     num_frames=self.accumulator.num_frames,
                     capacity_per_frame=pts.shape[0])
-            pts, msk = self.accumulator.push(pts, msk, motion=motion)
+            with span("detect/accumulate"):
+                pts, msk = self.accumulator.push(pts, msk, motion=motion)
         out_t = self.predict_fn(pts, msk)
-        out_t = (fetch(*out_t) if all(isinstance(t, torch.Tensor) for t in out_t)
-                 else [np.asarray(t) for t in out_t])
+        with span("detect/fetch"):
+            out_t = (fetch(*out_t) if all(isinstance(t, torch.Tensor) for t in out_t)
+                     else [np.asarray(t) for t in out_t])
         boxes, scores, labels, bmask = out_t[:4]
         if len(out_t) > 4 and self.det_cfg_ref is not None:
-            d["freespace"] = seg_to_freespace(out_t[4], self.det_cfg_ref.pc_range,
-                                              self.det_cfg_ref.voxel_size[0])
+            with span("detect/freespace"):
+                d["freespace"] = seg_to_freespace(out_t[4], self.det_cfg_ref.pc_range,
+                                                  self.det_cfg_ref.voxel_size[0])
         keep = np.asarray(bmask, bool)
         det_boxes, det_scores, det_labels = boxes[keep], scores[keep], labels[keep]
         if getattr(self, "mono3d", None) is not None:
@@ -749,8 +761,9 @@ class DetectModule(Module):
                 det_boxes = np.zeros((0, 7), np.float32)
                 det_scores = np.zeros((0,), np.float32)
                 det_labels = np.zeros((0,), np.int32)
-        out = self.tracker.update(det_boxes, det_scores, det_labels,
-                                  dt=frame.timestep / 1e6, motion=motion)
+        with span("detect/tracker"):
+            out = self.tracker.update(det_boxes, det_scores, det_labels,
+                                      dt=frame.timestep / 1e6, motion=motion)
         out = self.obj_filter.filter(out)
         d["objects"] = out["objects"]
         return d

@@ -24,7 +24,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert import load_camera_params
 from ..detection.trafficlight import MapLight, match_detections, select_lights
@@ -33,6 +32,7 @@ from ..models.params_io import load_params
 from ..models.yolo2d import Yolo2D, Yolo2DConfig, decode_yolo2d, nms_2d
 from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 from ..utils.image import load_image, resize_linear
+from ..utils.spans import span
 from .pipeline import Module
 
 
@@ -110,20 +110,20 @@ def build_yolo_predict_fn(weights: Optional[str] = None, input_hw=(256, 320),
 
     @torch.inference_mode()
     def run(image):
-        with record_function("camera/prep"):
+        with span("camera/prep"):
             x = resize_linear(to_device(image, dev), (H, W)).float() / 255.0
-        with record_function("camera/yolo2d"):
+        with span("camera/yolo2d"):
             preds = maps_hwc(model(x.permute(2, 0, 1)[None]))
-        with record_function("camera/decode"):
+        with span("camera/decode"):
             boxes, scores, labels, mask = decode_yolo2d(preds, cfg.stride, cfg.max_boxes)
-        with record_function("camera/nms"):
+        with span("camera/nms"):
             keep = nms_2d(boxes, scores, mask)
         return boxes, scores, labels, keep
 
     def predict(image):
         ih, iw = image.shape[:2]
         out = run(image)
-        with record_function("camera/fetch"):
+        with span("camera/fetch"):
             boxes, scores, labels, keep = fetch(*out)
         # boxes back to the image's own pixels
         return boxes * np.asarray([iw / W, ih / H, iw / W, ih / H]), scores, labels, keep

@@ -13,14 +13,20 @@ One scan step:
 The reference's two ``lax.cond``s (plane re-search inside the iteration,
 map trim after it) are Python ``if``s on device booleans here: one host
 sync per iteration after the first, plus one per scan.  The small dense algebra (6x6 eigh,
-3x3 eigvalsh, 24x24 solve and inverse) stays on the device.
+3x3 eigvalsh, 24x24 solve and inverse) stays on the device, but on CUDA
+``eigh`` and ``eigvalsh`` each wait for the card twice: inside the solver
+and to check its error flag.
+
+Spans (``utils/spans.py``): ``lio_step/front`` (``/propagate``,
+``/undistort``, ``/downsample``, ``/match``), ``lio_step/iterate``
+(``/research`` each time the planes are matched again, ``/gate`` each
+iteration), ``lio_step/covariance``, ``lio_step/map_update``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
-from torch.profiler import record_function
 
 from ..ops.hashmap import (VoxelHashMap, hashmap_create, hashmap_insert, hashmap_knn,
                            hashmap_trim)
@@ -30,6 +36,7 @@ from ..ops.surfel import SurfelMap, surfel_create, surfel_insert, surfel_match, 
 from ..ops.voxelize import voxel_downsample
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.precision import slam_f32
+from ..utils.spans import span
 from .imu import ImuNoise, propagate, undistort
 from .state import ERR_DIM, GRAVITY, IDX_V, NavState, boxminus, boxplus, init_state
 
@@ -199,12 +206,16 @@ def scan_front(cfg: LioConfig, st: LioState, points: torch.Tensor,
                stamps: torch.Tensor, mask: torch.Tensor, imu: torch.Tensor,
                imu_mask: torch.Tensor) -> ScanFront:
     """IMU propagation, undistortion, downsample and the first plane match."""
-    nav_prop, P_prop, track = propagate(st.nav, st.P, imu, imu_mask,
-                                        cfg.imu_noise, cfg.acc_scale)
-    pts_und = undistort(points[:, :3], stamps, mask, nav_prop, track)
-    ds_pts, ds_mask = voxel_downsample(pts_und, mask, cfg.scan_voxel, cfg.ds_capacity)
-    ds_pts = ds_pts[:, :3].contiguous()
-    planes = _match_planes(cfg, nav_prop, ds_pts, ds_mask, st.map)
+    with span("lio_step/front/propagate"):
+        nav_prop, P_prop, track = propagate(st.nav, st.P, imu, imu_mask,
+                                            cfg.imu_noise, cfg.acc_scale)
+    with span("lio_step/front/undistort"):
+        pts_und = undistort(points[:, :3], stamps, mask, nav_prop, track)
+    with span("lio_step/front/downsample"):
+        ds_pts, ds_mask = voxel_downsample(pts_und, mask, cfg.scan_voxel, cfg.ds_capacity)
+        ds_pts = ds_pts[:, :3].contiguous()
+    with span("lio_step/front/match"):
+        planes = _match_planes(cfg, nav_prop, ds_pts, ds_mask, st.map)
     return ScanFront(nav_prop, P_prop, track, pts_und, ds_pts, ds_mask, planes)
 
 
@@ -241,7 +252,8 @@ def _iterate(cfg: LioConfig, m: Union[SurfelMap, VoxelHashMap], front: ScanFront
             d_r = torch.linalg.norm(nav_i.quat - anchor[1] *
                                     torch.sign(torch.sum(nav_i.quat * anchor[1])))
             if bool((d_t + 20.0 * d_r) > cfg.research_thresh):   # host sync
-                planes = _match_planes(cfg, nav_i, ds_pts, ds_mask, m)
+                with span("lio_step/iterate/research"):
+                    planes = _match_planes(cfg, nav_i, ds_pts, ds_mask, m)
                 anchor = (nav_i.pos, nav_i.quat)
         normals, dpl, _, _ = planes
         HtH, Htr, pstats = p2p_reduce(
@@ -249,7 +261,8 @@ def _iterate(cfg: LioConfig, m: Union[SurfelMap, VoxelHashMap], front: ScanFront
             nav_i.rot, nav_i.ext_rot, nav_i.ext_t, nav_i.pos, cfg.max_resid,
             est_extrinsic=cfg.est_extrinsic)
         n_pts_valid, sum_abs_r = pstats[0], pstats[1]
-        E, n_degen, n_weak = _gate_degenerate(cfg, HtH)
+        with span("lio_step/iterate/gate"):    # eigh, eigvalsh: two host syncs each
+            E, n_degen, n_weak = _gate_degenerate(cfg, HtH)
         HtH = E @ HtH @ E.T
         Htr = E @ Htr
         # velocity observation: fixed weight when the geometry is
@@ -308,15 +321,15 @@ def lio_step(cfg: LioConfig, st: LioState,
     if vel_obs_valid is None:
         vel_obs_valid = torch.zeros((), dtype=torch.bool, device=dev)
 
-    with record_function("lio_step/front"):
+    with span("lio_step/front"):
         front = scan_front(cfg, st, points, stamps, mask, imu, imu_mask)
     nav_prop, P_prop = front.nav_prop, front.P_prop
     eye = torch.eye(ERR_DIM, dtype=torch.float32, device=dev)
     P_inv, _ = torch.linalg.inv_ex(P_prop + 1e-9 * eye)
-    with record_function("lio_step/iterate"):
+    with span("lio_step/iterate"):
         nav_new, HtH, stats = _iterate(cfg, st.map, front, P_inv, vel_obs, vel_obs_valid)
 
-    with record_function("lio_step/covariance"):
+    with span("lio_step/covariance"):
         # covariance update with the last iteration's information
         P_new, _ = torch.linalg.inv_ex(HtH + P_inv)
         P_new = 0.5 * (P_new + P_new.T)
@@ -325,7 +338,7 @@ def lio_step(cfg: LioConfig, st: LioState,
                              for a, b in zip(nav_new, nav_prop)])
         P_new = torch.where(st.initialized, P_new, P_prop)
 
-    with record_function("lio_step/map_update"):
+    with span("lio_step/map_update"):
         new_map, new_center = _update_map(cfg, st, front, mask, nav_new)
 
     track = front.track

@@ -19,13 +19,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..geometry import np_so3, so3
 from ..ops.surfel import surfel_create, surfel_insert
 from ..ops.voxelize import voxel_downsample
 from ..utils.device import DeviceLike, resolve_device, to_device
 from ..utils.precision import slam_f32
+from ..utils.spans import span
 from .keyframe import Keyframe, KeyframeStore
 from .lio import LioConfig, lio_init, lio_step
 from .map_io import load_map
@@ -67,7 +67,7 @@ def localize_track_step(ukf_st: UkfState, ndt_map, icp_map,
         gate_ang = torch.full((), float(np.deg2rad(10.0)), dtype=torch.float32, device=dev)
     if gps_gate is None:
         gps_gate = torch.full((), 2.5, dtype=torch.float32, device=dev)
-    with record_function("localizer/track_step/ukf_predict"):
+    with span("localizer/track_step/ukf_predict"):
         if has_odom:
             # LiDAR-inertial odometry increment drives the prediction
             st_pred = ukf_predict_odom(ukf_st, odom_dq, odom_dt, dt, ukf_cfg)
@@ -99,13 +99,13 @@ def localize_track_step(ukf_st: UkfState, ndt_map, icp_map,
             # voxel-filters its input cloud.
             points, mask = voxel_downsample(points, mask, track_voxel, track_capacity)
             points = points[:, :3]
-    with record_function("localizer/track_step/ndt_align"):
+    with span("localizer/track_step/ndt_align"):
         q, t, ndt_info = ndt_align(ndt_map, points, mask, q0, t0,
                                    iters=ndt_iters, searches=ndt_searches)
-    with record_function("localizer/track_step/icp_refine"):
+    with span("localizer/track_step/icp_refine"):
         q, t, icp_info = icp_point_to_plane(icp_map, points, mask, q, t,
                                             iters=icp_iters, searches=icp_searches)
-    with record_function("localizer/track_step/ukf_correct"):
+    with span("localizer/track_step/ukf_correct"):
         matched = ndt_info["matched_frac"]
         fitness = icp_info["fitness"]
         ok = (matched > 0.15) & (fitness > 0.2)
@@ -287,7 +287,7 @@ class Localizer:
         return None if best is None else np.asarray(best).flatten().tolist()
 
     def _build_local_map(self, center) -> None:
-        with record_function("localizer/build_local_map"):
+        with span("localizer/build_local_map"):
             ids = self.store.within_radius(center, self.cfg.local_map_radius)
             cloud = self.store.merged_cloud(ids, max_points=2 ** 17)
             pad, m = pad_pow2(cloud, self.device)
@@ -305,7 +305,7 @@ class Localizer:
         """Hint / ScanContext / ORB-visual / GNSS-seeded -> ICP verify ->
         initial pose.  ``points`` (N, >=3) and ``mask`` as host arrays or
         tensors on the localizer's device."""
-        with record_function("localizer/relocalize"):
+        with span("localizer/relocalize"):
             dev = self.device
             pts_d = to_device(points, dev)[:, :3]
             mask_d = to_device(mask, dev)
@@ -410,7 +410,7 @@ class Localizer:
             self._lio_state = lio_init(self.cfg.lio, device=dev)
             self._lio_prev = np.eye(4)
             self._lio_n = 0
-        with record_function("localizer/lio_increment"):
+        with span("localizer/lio_increment"):
             self._lio_state, info = lio_step(
                 self.cfg.lio, self._lio_state,
                 to_device(points, dev)[:, :3], to_device(stamps, dev),
@@ -511,7 +511,7 @@ class Localizer:
             inc[0] if inc is not None else [1.0, 0.0, 0.0, 0.0],
             inc[1] if inc is not None else z3,
             [gate_t, gate_ang, gps_gate]]).astype(np.float32), dev)
-        with record_function("localizer/track_step"):
+        with span("localizer/track_step"):
             # one fused device step (predict + NDT + ICP + gated corrections)
             self.ukf, T_dev, matched_dev, fitness_dev, ok_dev, gps_ok_dev, diag_dev = \
                 localize_track_step(
@@ -526,7 +526,7 @@ class Localizer:
                                   else self.cfg.ndt_searches),
                     track_voxel=self.cfg.track_voxel,
                     track_capacity=self.cfg.track_capacity)
-        with record_function("localizer/fetch"):
+        with span("localizer/fetch"):
             # ONE fetch (one host sync) of everything the host consumes
             flat = torch.cat([
                 T_dev.reshape(-1),

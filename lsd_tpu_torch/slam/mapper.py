@@ -21,13 +21,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..calibration.lidar import ransac_ground_plane
 from ..geometry import np_so3, so3
 from ..ops.surfel import surfel_create, surfel_insert
 from ..ops.voxelize import voxel_downsample
 from ..utils.device import DeviceLike, resolve_device, to_device
+from ..utils.spans import span
 from .graph_builder import PoseGraphBuilder
 from .keyframe import Keyframe, KeyframeStore, KeyframeUpdater
 from .lio import LioConfig, lio_init, lio_step
@@ -62,7 +62,7 @@ def _scan_step(cfg, st, points, stamps, mask, imu, imu_mask,
     device tensor."""
     st2, info = lio_step(cfg, st, points, stamps, mask, imu, imu_mask,
                          vel_obs, vel_obs_valid)
-    with record_function("mapper/keyframe_material"):
+    with span("mapper/keyframe_material"):
         kf_cloud = _kf_downsample(info["points_und"], mask, kf_voxel, kf_cap)
         kf_desc = make_descriptor(info["points_und"], mask)
     return st2, info, kf_cloud, kf_desc
@@ -246,7 +246,7 @@ class Mapper:
         info, stamp_us, mask = job["info"], job["stamp_us"], job["mask"]
         # ONE device fetch (one host sync) for everything the host consumes
         # per scan: see process_scan for the layout
-        with record_function("mapper/fetch"):
+        with span("mapper/fetch"):
             flat = job["packed"].cpu().numpy()
         m = info["imu_t"].shape[0]
         pose_f, t_f, q_f, p_f, v_f, n_imu = np.split(
@@ -445,7 +445,7 @@ class Mapper:
         kf = self.store[kid]
         if kf.accum_distance < cfg.loop_min_distance or len(self.sc_ids) < 5:
             return None
-        with record_function("mapper/sc_query"):
+        with span("mapper/sc_query"):
             idx, dist, yaw = sc_query(self.sc_db, desc, num_candidates=10,
                                       exclude_recent=5)
             # one fetch (the index, below 2**24, is exact in float32)
@@ -489,7 +489,7 @@ class Mapper:
             if len(target) < 1000:
                 self.loop_stats["target"] += 1
                 return None
-            with record_function("mapper/loop_target"):
+            with span("mapper/loop_target"):
                 m = surfel_create(capacity=cfg.loop_map_capacity,
                                   voxel_size=cfg.loop_map_voxel, device=self.device)
                 m = surfel_insert(m, *pad_pow2(target, self.device))
@@ -504,7 +504,7 @@ class Mapper:
         # initial guess: current graph estimate of the relative pose
         # (an estimate only: the measurement basis is pure odometry)
         T0 = np.linalg.inv(cand_kf.pose) @ kf.pose
-        with record_function("mapper/icp_verify"):
+        with span("mapper/icp_verify"):
             src_pad, smask = pad_pow2(kf.cloud, self.device)
             T0_d = to_device(T0[:3], self.device, torch.float32)
             q, t, icp_info = icp_point_to_plane(
@@ -582,7 +582,7 @@ class Mapper:
                     return
                 ver_snap = self._graph_struct_version
                 data = self.graph.to_data(device=self.device)
-            with record_function("mapper/pgo"):
+            with span("mapper/pgo"):
                 data, info = optimize(data, self.cfg.pgo)
             with self._graph_lock:
                 if self._graph_struct_version != ver_snap:

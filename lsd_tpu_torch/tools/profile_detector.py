@@ -5,30 +5,34 @@
 
 Serves a shipped checkpoint (``--capacity reference``: 0.2 m pillars,
 640^2 grid; ``true_reference``: 0.1 m pillars, 1280^2 fine grid) through
-``runtime.modules.build_detector_predict_fn`` in bf16 and drives it as the
-reference's ``DetectModule.process`` does, frame by frame (``detect_frame``):
-two accumulated frames, predict, one packed fetch, freespace, the tracker
-(its GIoU on the card) and the ROI filter.  The frames are
-``ego_drive``'s: one realistic scene seen from a vehicle driving straight
-at 10 m/s.  After 3 warm-up frames, ``--frames`` frames run under
-``torch.profiler`` (host and device), then 3 more have their host syncs
-counted, in predict alone and in the whole frame.  It prints, and writes
-as JSON:
+``runtime.modules.build_detector_predict_fn`` in bf16, handed to a
+``runtime.modules.DetectModule`` (``detect_module``), and drives the
+module's ``process`` frame by frame: parsing, two accumulated frames,
+predict, one packed fetch, freespace, the tracker (its GIoU on the card)
+and the ROI filter.  The frames are ``ego_drive``'s: one realistic scene
+seen from a vehicle driving straight at 10 m/s.  After 3 warm-up frames,
+``--frames`` frames run under ``torch.profiler`` (host and device), then 3
+more have their host syncs counted, in predict alone and in the whole
+frame.  It prints, and writes as JSON:
 
 - wall ms per frame (host clock, ending in a synchronize), the device's
   busy ms per frame and its idle share, kernel launches per frame;
-- each ``detect/*`` span's host ms and kernel launches per frame:
-  ``voxelize``, ``vfe``, ``scatter``, ``backbone``, ``head``, ``decode``,
-  ``nms`` (thresholds and the greedy sweep), ``fetch``, ``tracker``;
+- each ``detect/*`` span's host ms and kernel launches per frame, the
+  program's own: ``parse``, ``accumulate``, ``upload``, ``voxelize``,
+  ``vfe``, ``scatter``, ``backbone``, ``head``, ``decode``, ``nms``
+  (thresholds and the greedy sweep), ``fetch``, ``freespace``,
+  ``tracker``;
 - the kernels and the host-side operators that take the most time;
 - host syncs per frame by source line.
 
 It needs a card; it has no CPU path.  ``eval_scenes``, ``mean_ap``,
-``ego_drive`` and ``detect_frame`` are also what ``chip_smoke.py`` uses.
+``ego_drive``, ``detect_module``, ``frame_dict`` and ``frame_profile`` are
+also what ``chip_smoke.py`` uses.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 from pathlib import Path
@@ -36,17 +40,14 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
-from ..detection.accumulate import FrameAccumulator
 from ..detection.eval import evaluate_frames
-from ..detection.freespace import seg_to_freespace
-from ..detection.object_filter import ObjectFilter
-from ..detection.tracker import Tracker3D, TrackerConfig
 from ..models.detector import DetectorConfig
-from ..runtime.modules import build_detector_predict_fn
+from ..runtime.config import AttrDict
+from ..runtime.modules import DetectModule, build_detector_predict_fn
 from ..training.data import SyntheticDetectionDataset, SyntheticSceneConfig
-from ..utils.device import fetch, resolve_device
+from ..utils.device import resolve_device
 from .profile_lio import _card, sync_sites, trace_report
 
 SPANS = ("detect/",)
@@ -108,60 +109,61 @@ def ego_drive(n_frames: int, seed: int = 7, speed: float = 10.0, dt: float = 0.1
     return frames, (sc["gt_boxes"][gm], sc["gt_labels"][gm])
 
 
-def detect_frame(predict, det_cfg: DetectorConfig, accumulator: FrameAccumulator,
-                 tracker: Tracker3D, obj_filter: ObjectFilter, points, mask, motion,
-                 dt: float = 0.1) -> Dict:
-    """One frame as the reference's ``DetectModule.process`` runs it:
-    accumulate, predict (``with_seg``), one packed fetch of the kept boxes
-    and the freespace logits, ``seg_to_freespace``, ``Tracker3D.update``
-    and ``ObjectFilter.filter``.  The motion goes to the accumulator and to
-    the tracker alike, as the reference passes it.  Returns the filtered
-    result with ``freespace`` and ``detections`` (boxes, scores, labels)."""
-    pts, msk = accumulator.push(points, mask, motion=motion)
-    boxes, scores, labels, keep, seg = predict(pts, msk)
-    with record_function("detect/fetch"):
-        boxes_h, scores_h, labels_h, keep_h, seg_h = fetch(boxes, scores, labels, keep, seg)
-    freespace = seg_to_freespace(seg_h, det_cfg.pc_range, det_cfg.voxel_size[0])
-    with record_function("detect/tracker"):
-        out = tracker.update(boxes_h[keep_h], scores_h[keep_h], labels_h[keep_h], dt=dt,
-                             motion=motion)
-    out = obj_filter.filter(out)
-    out["freespace"] = freespace
-    out["detections"] = (boxes_h[keep_h], scores_h[keep_h], labels_h[keep_h])
-    return out
+def detect_module(predict, det_cfg: DetectorConfig, device) -> DetectModule:
+    """A ``DetectModule`` serving ``predict`` (a ``build_detector_predict_fn``
+    function with ``with_seg``, built at ``det_cfg``) through ``set_model``:
+    two accumulated frames, freespace, the tracker and the ROI filter the
+    drives use, a square of 60 m around the vehicle less the vehicle's own
+    footprint."""
+    r, ego = 60.0, [[-2.5, -1.2], [2.5, -1.2], [2.5, 1.2], [-2.5, 1.2]]
+    cfg = AttrDict(dict(
+        input=dict(mode="offline"), detection=dict(enable=False, accum_frames=2),
+        roi=[dict(contour=[[-r, -r], [r, -r], [r, r], [-r, r]], is_included=True),
+             dict(contour=ego, is_included=False)]))
+    module = DetectModule(cfg, device=device)
+    module.setup(cfg)
+    module.set_model(predict, det_cfg)
+    return module
 
 
-def roi_filter(radius: float = 60.0) -> ObjectFilter:
-    """The ROI filter the drives use: a square of ``radius`` metres around
-    the vehicle, less the vehicle's own footprint."""
-    r, e = radius, np.asarray([[-2.5, -1.2], [2.5, -1.2], [2.5, 1.2], [-2.5, 1.2]])
-    return ObjectFilter(include_polygons=[np.asarray([[-r, -r], [r, -r], [r, r], [-r, r]])],
-                        exclude_polygons=[e])
+def frame_dict(points, mask, motion, k: int, dt: float = 0.1) -> Dict:
+    """Frame ``k`` of ``ego_drive`` as the runtime's frame dict.  The motion
+    goes to the accumulator and to the tracker alike, as the reference's
+    ``DetectModule.process`` passes it."""
+    return dict(lidar_valid=True, points={"lidar": points[mask]},
+                frame_timestamp_monotonic=int(k * dt * 1e6), timestep=int(dt * 1e6),
+                motion_t=motion, motion_valid=motion is not None)
 
 
-def frame_profile(run, predict, traced, probed) -> dict:
-    """``run`` (one frame, ``detect_frame`` bound to its state) over the
-    frames ``traced`` under ``torch.profiler``: wall and device-busy ms per
-    frame, idle share, launches, and per ``detect/*`` span host ms and
-    launches; then host syncs by site in ``run`` and in ``predict`` alone,
-    per frame, over the frames ``probed``."""
+def frame_profile(module: DetectModule, traced, probed) -> dict:
+    """``module.process`` over the frame dicts ``traced`` under
+    ``torch.profiler``: wall and device-busy ms per frame, idle share,
+    launches, and per ``detect/*`` span host ms and launches; then host
+    syncs by site in the whole frame and in the predict function alone, per
+    frame, over the frame dicts ``probed``."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in traced:
-            run(f)
+        for d in traced:
+            module.process(dict(d))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = len(traced)
     report = {k.replace("_per_scan", "_per_frame"): v
               for k, v in trace_report(prof, n, wall, SPANS).items()}
-    sites_frame, sites_predict = {}, {}
-    probe = FrameAccumulator(2, capacity_per_frame=probed[0][0].shape[0])
-    for f in probed:
-        stacked = probe.push(*f)
-        for fn, into in ((lambda: run(f), sites_frame), (lambda: predict(*stacked), sites_predict)):
-            for site, c in sync_sites(fn)[1].items():
-                into[site] = into.get(site, 0) + c
+    predict, inputs = module.predict_fn, []
+
+    def keep_inputs(points, mask):
+        inputs.append((points, mask))
+        return predict(points, mask)
+    module.set_model(keep_inputs)
+    sites_frame, sites_predict = collections.Counter(), collections.Counter()
+    try:
+        for d in probed:
+            sites_frame.update(sync_sites(lambda: module.process(dict(d)))[1])
+            sites_predict.update(sync_sites(lambda: predict(*inputs[-1]))[1])
+    finally:
+        module.set_model(predict)
     m = len(probed)
     report.update(host_syncs_per_frame=sum(sites_frame.values()) / m,
                   host_sync_sites_per_frame={k: v / m for k, v in sites_frame.items()},
@@ -181,16 +183,14 @@ def main(argv=None) -> dict:
     det_cfg = CAPACITIES[args.capacity]()
     predict = build_detector_predict_fn(det_cfg=det_cfg, with_seg=True, device=dev)
     frames, _ = ego_drive(WARM + args.frames + SYNC_FRAMES)
-    acc = FrameAccumulator(2, capacity_per_frame=frames[0][0].shape[0])
-    tracker = Tracker3D(TrackerConfig(), device=dev)
-    filt = roi_filter()
-    run = lambda f: detect_frame(predict, det_cfg, acc, tracker, filt, *f)
-    for f in frames[:WARM]:
-        run(f)
+    dicts = [frame_dict(*f, k) for k, f in enumerate(frames)]
+    module = detect_module(predict, det_cfg, dev)
+    for d in dicts[:WARM]:
+        module.process(dict(d))
     report = dict(card=_card(), capacity=args.capacity, frames=args.frames,
-                  points_per_frame=2 * frames[0][0].shape[0],
-                  **frame_profile(run, predict, frames[WARM:WARM + args.frames],
-                                  frames[WARM + args.frames:]))
+                  points_per_frame=2 * module.accumulator.cap,
+                  **frame_profile(module, dicts[WARM:WARM + args.frames],
+                                  dicts[WARM + args.frames:]))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_detector_{args.capacity}.json").write_text(json.dumps(report, indent=1))

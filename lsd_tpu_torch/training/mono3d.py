@@ -17,7 +17,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert import camera_params_to_flax, load_camera_params
 from ..models.mono3d import Mono3D, Mono3DConfig, init_camera_params, mono3d_loss
@@ -25,6 +24,7 @@ from ..models.params_io import load_params, save_params
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.log import get_logger
 from ..utils.precision import set_slam_precision
+from ..utils.spans import span
 from .camera_data import default_intrinsic, mono3d_ap, mono3d_frames
 from .trainer import Batch, StepTrainer
 
@@ -43,9 +43,9 @@ class Mono3DTrainer(StepTrainer):
         self._start(model, lr, 100, total_steps, 1e-4, 10.0)
 
     def loss_on_batch(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        with record_function("train/forward"):
+        with span("train/forward"):
             preds = self.model(batch["image"].permute(0, 3, 1, 2))
-        with record_function("train/loss"):
+        with span("train/loss"):
             losses, aux = mono3d_loss({k: v.permute(0, 2, 3, 1) for k, v in preds.items()},
                                       {k: batch["t_" + k] for k in TARGETS})
             return losses.mean(), {k: v.mean() for k, v in aux.items()}

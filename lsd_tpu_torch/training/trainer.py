@@ -32,7 +32,6 @@ from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert import detector_params_from_flax, detector_params_to_flax
 from ..detection.eval import evaluate_frames
@@ -44,6 +43,7 @@ from ..parallel.mesh import psum, rank_rows
 from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 from ..utils.log import get_logger
 from ..utils.precision import set_slam_precision
+from ..utils.spans import span
 from .optim import ClippedAdamW
 
 Batch = Dict[str, torch.Tensor]
@@ -91,11 +91,11 @@ class StepTrainer:
         if self.mesh is not None:
             batch = self._shard(batch)
         loss, aux = self.loss_on_batch(batch)
-        with record_function("train/backward"):
+        with span("train/backward"):
             loss.backward()
         if self.mesh is not None:
             loss, aux = self._average(loss.detach(), aux)
-        with record_function("train/optim"):
+        with span("train/optim"):
             self.opt.step()
             self.opt.zero_grad()
         self.step += 1
@@ -166,9 +166,9 @@ class Trainer(StepTrainer):
     def loss_on_batch(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The batch's mean loss, each frame's loss normalised on its own."""
         cfg = self.det_cfg
-        with record_function("train/forward"):
+        with span("train/forward"):
             preds = self.model.forward_batch(batch["points"], batch["mask"])
-        with record_function("train/loss"):
+        with span("train/loss"):
             targets = make_target_maps(cfg, batch["gt_boxes"], batch["gt_labels"],
                                        batch["gt_mask"])
             targets["seg"], targets["seg_mask"] = make_seg_target(cfg, batch["points"],

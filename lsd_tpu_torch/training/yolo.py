@@ -27,7 +27,6 @@ from typing import Dict, Tuple
 
 import torch
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from ..convert import camera_params_to_flax, load_camera_params
 from ..models.detector import as_batch, last_wins
@@ -37,6 +36,7 @@ from ..models.yolo2d import Yolo2D, Yolo2DConfig
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.log import get_logger
 from ..utils.precision import set_slam_precision
+from ..utils.spans import span
 from .camera_data import yolo2d_ap, yolo2d_frames
 from .trainer import Batch, StepTrainer
 
@@ -123,9 +123,9 @@ class YoloTrainer(StepTrainer):
         self._start(model, lr, 100, total_steps, 1e-4, 10.0)
 
     def loss_on_batch(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        with record_function("train/forward"):
+        with span("train/forward"):
             preds = self.model(batch["image"].permute(0, 3, 1, 2))
-        with record_function("train/loss"):
+        with span("train/loss"):
             targets = make_yolo_targets(self.cfg, self.hw, batch["gt_boxes"],
                                         batch["gt_labels"], batch["gt_mask"])
             losses, aux = yolo_loss({k: v.permute(0, 2, 3, 1) for k, v in preds.items()},
