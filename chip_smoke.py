@@ -11,15 +11,16 @@ Phases, in order; any failure exits non-zero:
    the size ``bench.py`` uses: 32,768-point ``CircleSim`` scans, 16 IMU
    samples, ``ds_capacity=16384``, ``map_capacity=2**18``, 0.4 m voxels,
    ``max_iters=4``.  After the warm-up scans, hold each kernel against its
-   plain PyTorch version on the card, on the main path's own
-   first-iteration inputs; check that a call is one launch, that two
-   launches and a CUDA-graph replay agree bitwise; time kernel and plain
-   version beside the bound and the launch floor (the device time of a
-   one-element PyTorch op).
+   plain PyTorch version on the card, on the main path's own inputs (the
+   p2p kernel's first iteration; the IMU propagation at the scan's 16
+   slots and with them laid into the pipeline's 64); check that a call is
+   one launch, that two launches and a CUDA-graph replay agree bitwise;
+   time kernel and plain version beside the bound and the launch floor
+   (the device time of a one-element PyTorch op).
 3. Set the launch counts to 0, time the main path over the timed scans,
    read the counts, and check the trajectory (finite state, ATE < 0.1 m,
-   ``bench.py``'s own sanity bound) and that every kernel ran
-   ``max_iters`` times per scan.
+   ``bench.py``'s own sanity bound) and that the p2p kernel ran
+   ``max_iters`` times and the IMU kernel once per scan.
 4. The mapping path at full width: ``lsd_tpu_torch.slam.mapper.Mapper`` on
    the card over 95 scans of 32,768 points 1.2 times round an 8 m circle
    (the world of the reference's own mapping test), the LIO configured as
@@ -491,6 +492,11 @@ H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 # work.
 P2P_OPS_GATE, P2P_OPS_VALID = 53, 53 + 27 + 63
 
+# fp32 operations per valid IMU slot of csrc/imu_propagate.cu: F P and
+# (F P) F^T dense, 24^3 multiply-adds each (counted as 2), and the 24 noise
+# terms; the nominal update (~250) is left out.  A masked slot does none.
+IMU_OPS_VALID = 2 * 2 * 24 ** 3 + 2 * 24
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -715,6 +721,114 @@ def check_p2p_graph(args, max_resid):
         if not all(torch.equal(a, b) for a, b in zip(captured, direct)):
             fail(f"p2p_reduce: a CUDA-graph replay differs from a direct call (weights x{scale})")
     log("p2p_reduce: CUDA-graph replay equals a direct call bitwise, twice")
+
+
+def imu_inputs(cfg, st, scan, slots):
+    """``propagate``'s inputs at state ``st`` with ``scan``'s IMU batch laid
+    into ``slots`` slots: its own rows first, the rest masked out."""
+    import torch
+    imu, mask = scan[3], scan[4]
+    pad = slots - imu.shape[0]
+    imu = torch.cat([imu, imu.new_zeros(pad, 7)]).contiguous()
+    mask = torch.cat([mask, mask.new_zeros(pad)]).contiguous()
+    return st.nav, st.P, imu, mask, cfg.imu_noise, cfg.acc_scale
+
+
+def compare_imu(args):
+    """Hold the IMU kernel against ``propagate_plain`` on ``args``: two
+    launches bitwise equal, state and track within rtol 1e-5 and atol 1e-6
+    (float32 rounding of the same recursion), P within 1e-5 of its largest
+    entry (the kernel sums each product in a fixed order, the plain version
+    through cuBLAS); returns the largest absolute error."""
+    import torch
+    from lsd_tpu_torch.slam.imu import propagate, propagate_plain
+
+    def flat(res):
+        st, P, tr = res
+        return [st.quat, st.pos, st.vel, P, tr["quat"], tr["pos"], tr["vel"]]
+    out, again = flat(propagate(*args)), flat(propagate(*args))
+    ref = flat(propagate_plain(*args))
+    torch.cuda.synchronize()
+    slots, valid = args[2].shape[0], int(args[3].sum())
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"imu_propagate M={slots}: two launches differ bitwise")
+    errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+    p_tol = 1e-5 * float(ref[3].abs().max())
+    ok = errs[3] <= p_tol and all(
+        torch.allclose(a, b, rtol=1e-5, atol=1e-6) for k, (a, b) in enumerate(zip(out, ref))
+        if k != 3)
+    log(f"imu_propagate M={slots} ({valid} valid): |dquat| {errs[0]:.3e}, |dpos| "
+        f"{errs[1]:.3e}, |dvel| {errs[2]:.3e}, |dP| {errs[3]:.3e} <= {p_tol:.3e}, track "
+        f"{max(errs[4:]):.3e}, bitwise repeatable")
+    if not ok:
+        fail(f"imu_propagate M={slots}: kernel disagrees with propagate_plain")
+    return max(errs)
+
+
+def check_imu_graph(args):
+    """A propagation captured in a CUDA graph and replayed equals a direct
+    call bitwise, and the replay reads the IMU rows as they are at replay."""
+    import torch
+    from lsd_tpu_torch.slam.imu import propagate
+    args = list(args)
+    args[2] = args[2].clone()
+    flat = lambda r: [r[0].quat, r[0].pos, r[0].vel, r[1], r[2]["quat"], r[2]["pos"]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        propagate(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flat(propagate(*args))
+    for scale in (1.0, 0.5):
+        args[2][:, 1:4].mul_(scale)
+        graph.replay()
+        direct = flat(propagate(*args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(captured, direct)):
+            fail(f"imu_propagate: a CUDA-graph replay differs from a direct call (gyro x{scale})")
+    log("imu_propagate: CUDA-graph replay equals a direct call bitwise, twice")
+
+
+def check_imu(cfg, st, scan, report):
+    """Hold the IMU kernel against ``propagate_plain`` at the scan's 16
+    slots and laid into 64; time both at each."""
+    import torch
+    from lsd_tpu_torch.slam.imu import propagate, propagate_plain
+
+    report.update(name="imu_propagate", route="cuda",
+                  source="lsd_tpu_torch/csrc/imu_propagate.cu",
+                  replaces="lax.scan of lsd_tpu/slam/imu.py:propagate (no Pallas kernel)",
+                  max_abs_err=0.0, library_ms=None)
+    for slots in (IMU_CAP, 64):
+        args = imu_inputs(cfg, st, scan, slots)
+        report["max_abs_err"] = max(report["max_abs_err"], compare_imu(args))
+        if slots == IMU_CAP:
+            check_imu_graph(args)
+        ms, per_call = device_ms(lambda: propagate(*args), match="imu_propagate")
+        if per_call != 1:
+            fail(f"imu_propagate: the profiler saw {per_call} kernels per call, expected 1")
+        # the plain version makes thousands of launches a call: fewer calls
+        plain_ms, plain_kernels = device_ms(lambda: propagate_plain(*args), n=10)
+        call_ms = time_ms(lambda: propagate(*args))
+        plain_call_ms = time_ms(lambda: propagate_plain(*args), n=10)
+        valid = int(args[3].sum())
+        in_bytes = (24 * 24 + 19) * 4 + slots * (7 * 4 + 1)   # P, state; IMU rows, mask
+        out_bytes = (24 * 24 + 10 + 10 * slots) * 4             # P, state, track
+        ops = valid * IMU_OPS_VALID
+        t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_FLOPS * 1e3
+        log(f"imu_propagate M={slots} ({valid} valid): device time per call: kernel "
+            f"{ms:.5f} ms ({per_call} launch), plain {plain_ms:.5f} ms ({plain_kernels} "
+            f"kernels); call time (CUDA events, median): kernel {call_ms:.4f} ms, plain "
+            f"{plain_call_ms:.4f} ms; bound {max(t_bytes, t_ops):.6f} ms "
+            f"({in_bytes + out_bytes} B, {ops} fp32 ops); no single PyTorch call "
+            f"computes this function (library time: none)")
+        report[f"m{slots}"] = dict(valid=valid, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                   plain_kernels=plain_kernels, plain_call_ms=plain_call_ms,
+                                   bound_ms=max(t_bytes, t_ops),
+                                   bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 class CallTimer:
@@ -4506,6 +4620,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from lsd_tpu_torch.ops.p2p import p2p_reduce
+        from lsd_tpu_torch.slam.imu import propagate
         from lsd_tpu_torch.slam.lio import lio_step
         from lsd_tpu_torch.utils import cuda_build
         from lsd_tpu_torch.utils.metrics import ate_rmse
@@ -4527,14 +4642,15 @@ def main() -> None:
     set_slam_precision()
 
     # ---- 1. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = cuda_build.build("p2p_reduce")
-    log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    ptxas = lib.parent / "ptxas.log"
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("ptxas: " + line.strip())
+    for name in ("p2p_reduce", "imu_propagate"):
+        t0 = time.perf_counter()
+        lib = cuda_build.build(name)
+        log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
+        ptxas = lib.parent / "ptxas.log"
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log("ptxas: " + line.strip())
 
     # ---- 2. warm-up, then kernels against their plain versions ----------
     t0 = time.perf_counter()
@@ -4549,6 +4665,8 @@ def main() -> None:
     torch.cuda.synchronize()
     p2p_report = {}
     check_p2p(p2p_inputs(cfg, st, scans[N_WARM]), cfg.max_resid, p2p_report)
+    imu_report = {}
+    check_imu(cfg, st, scans[N_WARM], imu_report)
     from lsd_tpu_torch.tools.profile_lio import sync_sites
     sites = sync_sites(lambda: lio_step(cfg, st, *scans[N_WARM]))[1]
     syncs = sum(sites.values())
@@ -4556,6 +4674,7 @@ def main() -> None:
 
     # ---- 3. the main path ------------------------------------------------
     p2p_reduce.launches = 0
+    propagate.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for scan in scans[N_WARM:]:
@@ -4567,6 +4686,10 @@ def main() -> None:
     if launches != cfg.max_iters * N_BENCH:
         fail(f"p2p_reduce launched {launches} times over {N_BENCH} scans, "
              f"expected max_iters x scans = {cfg.max_iters * N_BENCH}")
+    if propagate.launches != N_BENCH:
+        fail(f"imu_propagate launched {propagate.launches} times over {N_BENCH} scans, "
+             f"expected one a scan")
+    imu_report["launches"] = propagate.launches
     finite = all(bool(torch.isfinite(x).all()) for x in (*st.nav, st.P))
     if not finite:
         fail("the filter state is not finite after the main path")
@@ -4579,7 +4702,7 @@ def main() -> None:
     log(f"lio_step, {N_BENCH} scans of {CAP} points on {card}: "
         f"{N_BENCH / dt:.2f} scans/s, {dt / N_BENCH * 1e3:.3f} ms/scan, "
         f"ATE {ate:.5f} m, num_valid {int(info['num_valid'])}, "
-        f"p2p_reduce launches {launches}")
+        f"p2p_reduce launches {launches}, imu_propagate launches {propagate.launches}")
 
     phase_done("1-3 build and lio_step")
     lio_report = {"card": card, "scans": N_BENCH, "points_per_scan": CAP,
@@ -4688,7 +4811,7 @@ def main() -> None:
     print(json.dumps({"multi_device": md_report}))
     print(json.dumps({"tools": tools_report}))
     print(card)
-    print(json.dumps({"kernels": [p2p_report]}))
+    print(json.dumps({"kernels": [p2p_report, imu_report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """IMU forward propagation, covariance propagation and scan undistortion.
 
 Counterpart of ``lsd_tpu/slam/imu.py``.  The reference's masked
-``lax.scan`` over the fixed-capacity IMU batch is a Python loop here over
-the (at most 16) samples, with the same masking: a masked-out sample leaves
-state and covariance as they were.
+``lax.scan`` over the fixed-capacity IMU batch is one launch of the
+hand-written CUDA kernel ``csrc/imu_propagate.cu`` for CUDA tensors and a
+Python loop over the (at most 64) samples for CPU tensors
+(``propagate_plain``, the version the kernel is held to), with the same
+masking: a masked-out sample leaves state and covariance as they were.
 
 Conventions:
 - IMU samples: (M, 7) [t_sec, gx, gy, gz, ax, ay, az]; gyro rad/s, accel in
@@ -12,11 +14,14 @@ Conventions:
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..geometry import so3
+from ..utils import cuda_build
 from ..utils.device import DeviceLike, resolve_device
 from .state import (ERR_DIM, GRAVITY, IDX_BA, IDX_BG, IDX_G, IDX_P, IDX_R,
                     IDX_V, NavState, init_state)
@@ -51,14 +56,11 @@ def _process_noise(noise: ImuNoise, like: torch.Tensor) -> torch.Tensor:
     return torch.diag(Qd)
 
 
-def propagate(state: NavState, P: torch.Tensor, imu: torch.Tensor, imu_mask: torch.Tensor,
-              noise: ImuNoise, acc_scale: float = GRAVITY
-              ) -> Tuple[NavState, torch.Tensor, dict]:
-    """Propagate state and covariance through the IMU batch.
-
-    Returns (state_end, P_end, track) where ``track`` holds per-sample
-    poses for undistortion: t (M,), quat (M, 4), pos (M, 3), vel (M, 3).
-    """
+def propagate_plain(state: NavState, P: torch.Tensor, imu: torch.Tensor,
+                    imu_mask: torch.Tensor, noise: ImuNoise, acc_scale: float = GRAVITY
+                    ) -> Tuple[NavState, torch.Tensor, dict]:
+    """Plain PyTorch version of ``propagate`` (the CPU path and the version
+    the kernel is held to): one step of small ops per IMU slot."""
     dtype = P.dtype
     imu = imu.to(dtype)
     t = imu[:, 0]
@@ -93,6 +95,95 @@ def propagate(state: NavState, P: torch.Tensor, imu: torch.Tensor, imu_mask: tor
     track = dict(t=t, quat=torch.stack(quats), pos=torch.stack(poss),
                  vel=torch.stack(vels), mask=imu_mask)
     return st, P, track
+
+
+MAX_SLOTS = 64                    # the kernel's largest IMU batch (io/frame.py:IMU_CAPACITY)
+_STATE = (("pos", 3), ("quat", 4), ("vel", 3), ("bg", 3), ("ba", 3), ("grav", 3))
+
+
+def _check_f32(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"propagate: {name} is on {t.device}, expected {device}")
+    if t.dtype is not torch.float32:
+        raise TypeError(f"propagate: {name} must be float32, got {t.dtype}")
+    if t.shape != shape:
+        raise ValueError(f"propagate: {name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _check_args(state: NavState, P: torch.Tensor, imu: torch.Tensor,
+                imu_mask: torch.Tensor) -> None:
+    """Raise, naming the argument, for what the kernel does not take."""
+    dev = P.device
+    _check_f32("P", P, (ERR_DIM, ERR_DIM), dev)
+    for name, n in _STATE:
+        _check_f32(f"state.{name}", getattr(state, name), (n,), dev)
+    for name, t in (("imu", imu), ("imu_mask", imu_mask)):
+        if t.device != dev:
+            raise ValueError(f"propagate: {name} is on {t.device}, expected {dev}")
+    if imu.dim() != 2 or imu.shape[1] != 7 or not imu.dtype.is_floating_point:
+        raise ValueError(f"propagate: imu has shape {tuple(imu.shape)} and dtype {imu.dtype}, "
+                         "expected (M, 7) floating-point rows [t, gyro, accel]")
+    m = imu.shape[0]
+    if not 1 <= m <= MAX_SLOTS:
+        raise ValueError(f"propagate: imu has {m} slots, expected 1 to {MAX_SLOTS}")
+    if imu_mask.dtype is not torch.bool or imu_mask.shape != (m,):
+        raise ValueError(f"propagate: imu_mask has shape {tuple(imu_mask.shape)} and dtype "
+                         f"{imu_mask.dtype}, expected ({m},) torch.bool, one flag per imu slot")
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("imu_propagate")
+    lib.imu_propagate_launch.restype = ctypes.c_int
+    lib.imu_propagate_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def propagate(state: NavState, P: torch.Tensor, imu: torch.Tensor, imu_mask: torch.Tensor,
+              noise: ImuNoise, acc_scale: float = GRAVITY
+              ) -> Tuple[NavState, torch.Tensor, dict]:
+    """Propagate state and covariance through the IMU batch.
+
+    state's vectors and P (24, 24) are float32 on one device; imu (M, 7)
+    rows [t, gyro, accel] (cast to float32 as the plain version casts them)
+    and imu_mask (M,) bool, 1 <= M <= 64.  Returns (state_end, P_end,
+    track) where ``track`` holds per-sample poses for undistortion: t (M,),
+    quat (M, 4), pos (M, 3), vel (M, 3).  On CUDA, P_end, state_end's
+    quat, pos and vel and the track's are views of one buffer that the
+    kernel's one launch fills.
+    """
+    _check_args(state, P, imu, imu_mask)
+    dev = P.device
+    if dev.type == "cpu":
+        return propagate_plain(state, P, imu, imu_mask, noise, acc_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"propagate: unsupported device {dev}")
+    imu = imu.to(torch.float32)
+    m = imu.shape[0]
+    out = torch.empty(ERR_DIM * ERR_DIM + 10 + 10 * m, dtype=torch.float32, device=dev)
+    # P is read through its strides: the LIO step's comes out of an inverse
+    # column-major, and a copy would be a launch of its own
+    vecs = [t.contiguous() for t in (state.quat, state.pos, state.vel, state.bg, state.ba,
+                                      state.grav)]
+    rows = [t.contiguous() for t in (imu, imu_mask)]
+    err = _library().imu_propagate_launch(
+        *[t.data_ptr() for t in vecs], P.data_ptr(), *P.stride(),
+        *[t.data_ptr() for t in rows], m, noise.gyr ** 2, noise.acc ** 2,
+        noise.bg_walk ** 2, noise.ba_walk ** 2, float(acc_scale), out.data_ptr(), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"propagate: kernel launch failed with CUDA error {err}")
+    propagate.launches += 1
+    P_end, quat, pos, vel, tq, tp, tv = out.split_with_sizes(
+        (ERR_DIM * ERR_DIM, 4, 3, 3, 4 * m, 3 * m, 3 * m))
+    track = dict(t=imu[:, 0], quat=tq.view(m, 4), pos=tp.view(m, 3), vel=tv.view(m, 3),
+                 mask=imu_mask)
+    return (state._replace(quat=quat, pos=pos, vel=vel), P_end.view(ERR_DIM, ERR_DIM), track)
+
+
+propagate.launches = 0   # kernel launches since the last reset
 
 
 def undistort(points: torch.Tensor, stamps: torch.Tensor, mask: torch.Tensor,

@@ -14,6 +14,19 @@ the kernel being built without FMA contraction); two launches bitwise equal,
 and so a CUDA-graph replay and a direct call.  Each call is one launch of
 the kernel.
 
+The IMU propagation kernel against ``propagate_plain`` on the card, over
+seven slot layouts and a column-major covariance: state and track within rtol 1e-5 and atol 1e-6 and P
+within 1e-5 of its largest entry (float32 rounding of the same recursion;
+the kernel sums each entry of F P F^T in a fixed order, the plain version
+through cuBLAS); with no slot valid, state and P come back bitwise and the
+track repeats the start.  One launch (no copy of P) and no host sync a
+call; a CUDA-graph
+replay equals a direct call bitwise.  100 scans of ``lio_step`` at the
+benchmark's size with the kernel follow the same scans through
+``propagate_plain`` within the pose, rotation and covariance gaps of
+``port_bench/limits/lio-replay.json``: the limits that decide the
+benchmark's ``correct``.
+
 The mapping path's PyTorch ops run on the card as on the CPU:
 ``hashmap_insert`` gives the same integers and points (integer scatter-min
 and scatter-add are order-free), ``optimize`` and ``icp_point_to_plane`` the
@@ -217,6 +230,180 @@ def test_p2p_wrapper_rejects_mixed_devices(cuda):
     args[4] = args[4].cpu()
     with pytest.raises(ValueError):
         p2p_reduce(*args, 1.0)
+
+
+IMU_LAYOUTS = ["16_valid", "11_of_16", "11_of_64", "1_slot", "none_valid", "gap_clamped",
+               "equal_stamps", "P_column_major"]
+
+
+def _imu_case(layout, dev, seed=3):
+    """propagate's arguments: the simulator's IMU batch (11 valid rows at
+    100 Hz) laid out as ``layout`` names, biases, and a dense covariance with
+    a small asymmetric part, so that a transposed read would show; with
+    ``P_column_major`` it is stored column-major, as the LIO step's
+    covariance comes out of its inverse."""
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam.imu import ImuNoise
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    sim = CircleSim(SimConfig(n_scans=2, points_per_scan=512, gyro_noise=0.01, acc_noise=0.01,
+                              seed=seed))
+    scan = sim.generate(capacity=512, imu_capacity=64 if layout == "11_of_64" else 16)[1]
+    imu, mask = scan[3].copy(), scan[4].copy()
+    if layout == "16_valid":
+        imu[11:, 0] = 0.1 + 0.01 * np.arange(1, 6)
+        mask[:] = True
+    elif layout == "1_slot":
+        imu, mask = imu[:1], mask[:1]
+    elif layout == "none_valid":
+        mask[:] = False
+    elif layout == "gap_clamped":
+        imu[6:11, 0] += 0.25                     # one interval of 0.26 s, clamped to 0.1
+    elif layout == "equal_stamps":
+        imu[4, 0] = imu[3, 0]                    # a zero interval
+    rng = np.random.default_rng(seed)
+    A = rng.normal(scale=1e-2, size=(24, 24))
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    nav = nav_at_start(sim, dev)._replace(bg=f([1e-4, -2e-4, 3e-4]), ba=f([0.01, -0.02, 5e-3]))
+    P = f(A @ A.T + np.eye(24) * 1e-4 + rng.normal(scale=1e-6, size=(24, 24)))
+    if layout == "P_column_major":
+        P = P.T.contiguous().T
+    return nav, P, f(imu), torch.as_tensor(mask, device=dev), ImuNoise(), 9.81
+
+
+def _imu_outputs(res):
+    st, P, tr = res
+    return [st.quat, st.pos, st.vel, P, tr["quat"], tr["pos"], tr["vel"]]
+
+
+@pytest.mark.parametrize("layout", IMU_LAYOUTS)
+def test_imu_kernel_matches_plain(cuda, layout):
+    from lsd_tpu_torch.slam.imu import propagate, propagate_plain
+    args = _imu_case(layout, cuda)
+    before = propagate.launches
+    out = _imu_outputs(propagate(*args))
+    again = _imu_outputs(propagate(*args))
+    assert propagate.launches == before + 2
+    ref = _imu_outputs(propagate_plain(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    for k, (a, b) in enumerate(zip(out, ref)):
+        if k == 3:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    nav, P = args[0], args[1]
+    if layout == "none_valid":
+        for a, b in zip(out[:4], [nav.quat, nav.pos, nav.vel, P]):
+            assert torch.equal(a, b)
+        for a, b in zip(out[4:], [nav.quat, nav.pos, nav.vel]):
+            assert torch.equal(a, b.expand_as(a))
+    elif layout != "1_slot":                     # the first slot's interval is 0
+        assert not torch.equal(out[3], P)
+
+
+def test_imu_kernel_is_one_launch_per_call_and_makes_no_sync(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    from lsd_tpu_torch.slam.imu import propagate
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    args = _imu_case("P_column_major", cuda)         # as the LIO step hands it over
+    propagate(*args)
+    before = propagate.launches
+    _, sites = sync_sites(lambda: propagate(*args))
+    assert sites == {}, f"propagate made host syncs: {sites}"
+    assert propagate.launches == before + 1
+    syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy")
+
+    def traced(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                propagate(*args)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        return events, {e.key: e.count for e in events if e.key in syncs}
+
+    # the runtime waits of a trace that holds only the closing synchronize
+    # (and the profiler's own): 100 calls add none
+    _, waits = traced(0)
+    # as for the p2p kernel: a trace with fewer kernels than calls is taken
+    # again, one with more fails
+    for _ in range(5):
+        events, waits_100 = traced(100)
+        assert waits_100 == waits
+        on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        count = sum(e.count for e in on_card if "imu_propagate" in e.key)
+        assert [e.key for e in on_card
+                if "imu_propagate" not in e.key and e.self_device_time_total > 0] == []
+        assert count <= 100
+        if count == 100:
+            break
+    assert count == 100
+
+
+def test_imu_kernel_graph_replay_equals_a_direct_call(cuda):
+    from lsd_tpu_torch.slam.imu import propagate
+    args = list(_imu_case("11_of_16", cuda))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        propagate(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _imu_outputs(propagate(*args))
+    for scale in (1.0, 0.5):       # the replay reads the IMU rows as they are now
+        args[2][:, 1:4].mul_(scale)
+        graph.replay()
+        direct = _imu_outputs(propagate(*args))
+        torch.cuda.synchronize()
+        for a, b in zip(captured, direct):
+            assert torch.equal(a, b)
+
+
+def test_imu_wrapper_rejects_mixed_devices(cuda):
+    from lsd_tpu_torch.slam.imu import propagate
+    args = list(_imu_case("11_of_16", cuda))
+    args[3] = args[3].cpu()
+    with pytest.raises(ValueError, match="imu_mask"):
+        propagate(*args)
+
+
+def test_lio_step_with_imu_kernel_follows_plain_propagation(cuda, monkeypatch):
+    """100 scans at the benchmark's size (32,768 points, ``BENCH_CFG``),
+    with the kernel and with ``propagate_plain`` in its place."""
+    import json
+    from pathlib import Path
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.slam import imu, lio
+    from lsd_tpu_torch.tools.profile_lio import BENCH_CFG as cfg, nav_at_start
+    limits = json.loads((Path(__file__).resolve().parent.parent
+                         / "port_bench" / "limits" / "lio-replay.json").read_text())
+    n = 100
+    sim = CircleSim(SimConfig(n_scans=n, points_per_scan=2 ** 15, point_noise=0.01, seed=7))
+    scans = [tuple(torch.as_tensor(a, device=cuda) for a in d[:5])
+             for d in sim.generate(capacity=2 ** 15, imu_capacity=16)]
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(lio, "propagate", imu.propagate_plain)
+        st = lio.lio_init(cfg, nav_at_start(sim, cuda))
+        before = imu.propagate.launches
+        poses, covs = [], []
+        for scan in scans:
+            st, info = lio.lio_step(cfg, st, *scan)
+            poses.append(info["pose"])
+            covs.append(st.P)
+        assert imu.propagate.launches - before == (0 if plain else n)
+        runs.append([torch.stack(x).double().cpu().numpy() for x in (poses, covs)])
+    (pk, ck), (pp, cp) = runs
+    pos = np.linalg.norm(pk[:, :3, 3] - pp[:, :3, 3], axis=1).max()
+    chord = np.linalg.norm((pk[:, :3, :3] - pp[:, :3, :3]).reshape(n, -1), axis=1)
+    rot = (2.0 * np.arcsin(np.clip(chord / (2.0 * np.sqrt(2.0)), 0.0, 1.0))).max()
+    cov = (np.abs(ck - cp).reshape(n, -1).max(1) / np.abs(cp).reshape(n, -1).max(1)).max()
+    assert pos <= limits["pose_gap_m"], pos
+    assert rot <= limits["rot_gap_rad"], rot
+    assert cov <= limits["cov_gap_rel"], cov
 
 
 def test_lio_step_on_card_matches_cpu(cuda):

@@ -3,7 +3,8 @@
 IMU batches come from the numpy simulator (a copy in each package; the two
 give identical arrays) and from seeded noise.  Tolerances: state, track and
 covariance rtol 1e-5 with atol 1e-6 (float32 rounding of the same
-recursion); undistorted points atol 5e-5 m (a few float32 ulps at 40 m
+recursion; the plain loop over masked slot layouts likewise, with a dense
+covariance within 1e-5 of its largest entry); undistorted points atol 5e-5 m (a few float32 ulps at 40 m
 range: the frame transforms are matmuls whose summation order differs
 between XLA and PyTorch).
 """
@@ -69,6 +70,63 @@ def test_propagate_matches_reference(imu_capacity, noise):
     _close(jP, tP, atol=1e-9)
     for k in ("t", "quat", "pos", "vel"):
         _close(jtr[k], ttr[k])
+
+
+def _layout(name):
+    """A masked slot layout of the simulator's batch (11 valid rows at 100
+    Hz): 11 of 16 or of 64 slots, none valid, or an interval above 0.1 s."""
+    (_, _, _, I_, IM_, _), nav = _scan(imu_capacity=64 if name == "11_of_64" else 16,
+                                       gyro_noise=0.01)
+    I_, IM_ = I_.copy(), IM_.copy()
+    if name == "none_valid":
+        IM_[:] = False
+    elif name == "gap_clamped":
+        I_[6:11, 0] += 0.25                      # one interval of 0.26 s, clamped to 0.1
+    return I_, IM_, nav
+
+
+@pytest.mark.parametrize("layout", ["11_of_16", "11_of_64", "none_valid", "gap_clamped"])
+def test_propagate_plain_masked_layouts_match_reference(layout):
+    I_, IM_, nav = _layout(layout)
+    A = np.random.default_rng(0).normal(scale=1e-2, size=(24, 24))
+    P0 = (A @ A.T + np.eye(24) * 1e-4).astype(np.float32)
+    js, jP, jtr = jimu.propagate(nav, jnp.asarray(P0), jnp.asarray(I_), jnp.asarray(IM_),
+                                 jimu.ImuNoise())
+    ts, tP, ttr = timu.propagate_plain(_tnav(nav), torch.as_tensor(P0), torch.as_tensor(I_),
+                                       torch.as_tensor(IM_), timu.ImuNoise())
+    for a, b in zip(js, ts):
+        _close(a, b)
+    assert float(np.abs(tP.numpy() - np.asarray(jP)).max()) <= 1e-5 * float(np.abs(jP).max())
+    for k in ("t", "quat", "pos", "vel"):
+        _close(jtr[k], ttr[k])
+    if layout == "none_valid":
+        np.testing.assert_array_equal(tP.numpy(), P0)
+        np.testing.assert_array_equal(ttr["pos"].numpy(), np.tile(np.asarray(nav.pos), (16, 1)))
+    else:
+        assert float(np.abs(tP.numpy() - P0).max()) > 0.0
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("P_float64", "P must be float32"),
+    ("imu_6_columns", r"imu has shape \(16, 6\)"),
+    ("65_slots", "imu has 65 slots"),
+    ("mask_length", r"imu_mask has shape \(15,\)"),
+])
+def test_propagate_rejects_what_the_kernel_does_not_take(bad, match):
+    nav = _tnav(jinit())
+    P = torch.eye(24) * 1e-4
+    imu = torch.zeros(16, 7)
+    mask = torch.ones(16, dtype=torch.bool)
+    if bad == "P_float64":
+        P = P.double()
+    elif bad == "imu_6_columns":
+        imu = imu[:, :6]
+    elif bad == "65_slots":
+        imu, mask = torch.zeros(65, 7), torch.ones(65, dtype=torch.bool)
+    else:
+        mask = mask[:15]
+    with pytest.raises((TypeError, ValueError), match=match):
+        timu.propagate(nav, P, imu, mask, timu.ImuNoise())
 
 
 def test_step_F_matches_reference():
