@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Build every CUDA kernel of the LIO scan step from ``lsd_tpu_torch/csrc``
+1. Build every CUDA kernel (the LIO scan step's and DSVT's) from ``lsd_tpu_torch/csrc``
    (``nvcc`` for sm_90a) and print the build seconds.
 2. Drive the LIO step (``lsd_tpu_torch.slam.lio.lio_step``, surfel map) at
    the size ``bench.py`` uses: 32,768-point ``CircleSim`` scans, 16 IMU
@@ -21,6 +21,13 @@ Phases, in order; any failure exits non-zero:
    read the counts, and check the trajectory (finite state, ATE < 0.1 m,
    ``bench.py``'s own sanity bound) and that the p2p kernel ran
    ``max_iters`` times and the IMU kernel once per scan.
+2b. The DSVT set-attention kernel (``csrc/dsvt_set_attn.cu``) at the
+   published widths on a bench-size frame: the pillars of one 169,600-point
+   sweep of ``port_bench/traffic/urban-drive-waymo-top.json`` and seeded
+   bf16 Q, K and V, each of the frame's four partitions held against
+   ``set_attention_plain`` (DSVT_ATTN_TOL of the largest output); one launch
+   a call; two launches and a CUDA-graph replay bitwise equal; kernel and
+   plain version timed beside the bound and the launch floor.
 4. The mapping path at full width: ``lsd_tpu_torch.slam.mapper.Mapper`` on
    the card over 95 scans of 32,768 points 1.2 times round an 8 m circle
    (the world of the reference's own mapping test), the LIO configured as
@@ -496,6 +503,12 @@ P2P_OPS_GATE, P2P_OPS_VALID = 53, 53 + 27 + 63
 # (F P) F^T dense, 24^3 multiply-adds each (counted as 2), and the 24 noise
 # terms; the nominal update (~250) is left out.  A masked slot does none.
 IMU_OPS_VALID = 2 * 2 * 24 ** 3 + 2 * 24
+H100_BF16_FLOPS = 989e12            # bf16 tensor cores, dense
+# phase 2b: the set-attention kernel against its plain version, as a share of
+# the largest output: both sum in float32 in another order before one bf16
+# rounding, so an output can land one bf16 step (2^-8 of it) apart
+DSVT_ATTN_TOL = 1e-2
+DSVT_SEED = 11
 
 
 def fail(msg: str) -> None:
@@ -789,6 +802,99 @@ def check_imu_graph(args):
         if not all(torch.equal(a, b) for a, b in zip(captured, direct)):
             fail(f"imu_propagate: a CUDA-graph replay differs from a direct call (gyro x{scale})")
     log("imu_propagate: CUDA-graph replay equals a direct call bitwise, twice")
+
+
+def dsvt_inputs(dev, seed=DSVT_SEED):
+    """A bench-size frame for the set-attention kernel: its four partitions
+    (shift 0 and 1, x and y), seeded bf16 per-pillar Q and K (one (P, 384)
+    tensor, as the layer projects them) and V, and the frame's pillars."""
+    import torch
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.models.dsvt import DSVTConfig, partition_shift
+    from lsd_tpu_torch.ops.voxelize import pillarize_dynamic
+    from port_bench.gen import street
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "port_bench", "traffic", "urban-drive-waymo-top.json")) as f:
+        tr = json.load(f)
+    pts = torch.as_tensor(street.Street(tr, seed).frame(0), device=dev)
+    cfg = DetectorConfig.dsvt_pillar()
+    _, _, _, coords, pmask, _ = pillarize_dynamic(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=dev), cfg.voxel_size, cfg.pc_range,
+        cfg.max_voxels)
+    parts = []
+    for win, sh in DSVTConfig().shifts():
+        parts += partition_shift(coords, pmask, win, sh, cfg.grid_hw, DSVTConfig().set_size)[:2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P, D = cfg.max_voxels, cfg.pillar_filters
+    qk = torch.randn(P, 2 * D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(P, D, generator=g, device=dev).to(torch.bfloat16)
+    return qk, v, parts, int(pmask.sum())
+
+
+def check_dsvt(dev, report):
+    """Hold the set-attention kernel against ``set_attention_plain`` on each
+    partition of a bench-size frame; graph replay; time both."""
+    import torch
+    from lsd_tpu_torch.models.dsvt import set_attention, set_attention_plain
+    qk, v, parts, pillars = dsvt_inputs(dev)
+    D = v.shape[1]
+    q, k = qk[:, :D], qk[:, D:]
+    max_err = 0.0
+    for part in parts:
+        got = set_attention(q, k, v, part, 8)
+        again = set_attention(q, k, v, part, 8)
+        want = set_attention_plain(q, k, v, part, 8)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail("dsvt_set_attn: two launches on the same inputs differ")
+        err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        max_err = max(max_err, err)
+        if not err <= DSVT_ATTN_TOL:
+            fail(f"dsvt_set_attn: {err:.3g} of the largest output off its plain version "
+                 f"(bar {DSVT_ATTN_TOL})")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        set_attention(q, k, v, parts[0], 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = set_attention(q, k, v, parts[0], 8)
+    v.mul_(0.5)                        # the replay reads V as it is now
+    graph.replay()
+    direct = set_attention(q, k, v, parts[0], 8)
+    torch.cuda.synchronize()
+    if not torch.equal(captured, direct):
+        fail("dsvt_set_attn: a CUDA-graph replay differs from a direct call")
+
+    part = parts[0]
+    ms, per_call = device_ms(lambda: set_attention(q, k, v, part, 8), match="dsvt_set_attn")
+    if per_call != 1:
+        fail(f"dsvt_set_attn: the profiler saw {per_call} kernels per call, expected 1")
+    plain_ms, plain_kernels = device_ms(lambda: set_attention_plain(q, k, v, part, 8), n=10)
+    one = torch.zeros(1, device=dev)
+    floor_ms, _ = device_ms(lambda: one.add_(1.0))
+    call_ms = time_ms(lambda: set_attention(q, k, v, part, 8))
+    plain_call_ms = time_ms(lambda: set_attention_plain(q, k, v, part, 8), n=10)
+    sets, slots = int(part.n_sets), part.inds.shape[1]
+    in_bytes = pillars * 3 * D * 2 + sets * slots * 5       # q, k, v rows; index and flags a slot
+    out_bytes = pillars * D * 2
+    ops = sets * 2 * 2 * slots * slots * D
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_BF16_FLOPS * 1e3
+    log(f"dsvt_set_attn at {pillars} pillars, {sets} sets of {slots} (shift 0, x): device time "
+        f"per call: kernel {ms:.5f} ms ({per_call} launch of {part.inds.shape[0]} blocks x 288 "
+        f"threads), plain {plain_ms:.5f} ms ({plain_kernels} kernels); call time (CUDA "
+        f"events, median): kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; bound "
+        f"{max(t_bytes, t_ops):.6f} ms ({in_bytes + out_bytes} B, {ops} bf16 ops); launch "
+        f"floor {floor_ms:.5f} ms; largest gap to the plain version {max_err:.3g} of the "
+        f"largest output; no single PyTorch call computes this function (library time: none)")
+    report.update(name="dsvt_set_attn", route="cuda", source="lsd_tpu_torch/csrc/dsvt_set_attn.cu",
+                  replaces="none (the JAX package has no transformer)", max_abs_err=max_err,
+                  pillars=pillars, sets=sets, ms=ms, plain_ms=plain_ms,
+                  plain_kernels=plain_kernels, call_ms=call_ms, plain_call_ms=plain_call_ms,
+                  floor_ms=floor_ms, bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
 
 
 def check_imu(cfg, st, scan, report):
@@ -4642,7 +4748,7 @@ def main() -> None:
     set_slam_precision()
 
     # ---- 1. build -------------------------------------------------------
-    for name in ("p2p_reduce", "imu_propagate"):
+    for name in ("p2p_reduce", "imu_propagate", "dsvt_set_attn"):
         t0 = time.perf_counter()
         lib = cuda_build.build(name)
         log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
@@ -4667,6 +4773,8 @@ def main() -> None:
     check_p2p(p2p_inputs(cfg, st, scans[N_WARM]), cfg.max_resid, p2p_report)
     imu_report = {}
     check_imu(cfg, st, scans[N_WARM], imu_report)
+    dsvt_report = {}
+    check_dsvt(dev, dsvt_report)
     from lsd_tpu_torch.tools.profile_lio import sync_sites
     sites = sync_sites(lambda: lio_step(cfg, st, *scans[N_WARM]))[1]
     syncs = sum(sites.values())
@@ -4811,7 +4919,7 @@ def main() -> None:
     print(json.dumps({"multi_device": md_report}))
     print(json.dumps({"tools": tools_report}))
     print(card)
-    print(json.dumps({"kernels": [p2p_report, imu_report]}))
+    print(json.dumps({"kernels": [p2p_report, imu_report, dsvt_report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

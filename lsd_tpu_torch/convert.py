@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .models.detector import CenterPointDetector
+from .models.params_io import tree_to_state_dict
 from .ops.hashmap import VoxelHashMap
 from .ops.surfel import SurfelMap
 from .slam import posegraph as pg
@@ -227,6 +228,8 @@ def detector_params_from_flax(tree) -> "dict[str, torch.Tensor]":
     the CPU) from a flax parameter tree: ``{"params": {...}}`` or the inner
     dict."""
     params = tree.get("params", tree)
+    if "dsvt" in params:             # kept by its PyTorch names (params_io)
+        return tree_to_state_dict(params)
     bb = params.get("BEVBackbone_0", {})
     n_conv_ups = sum(k.startswith("Conv_") for k in bb)
     out = {}

@@ -1,6 +1,14 @@
 """CenterPoint-style detector: pillars -> BEV CNN -> heads (counterpart of
 ``lsd_tpu/models/detector.py:24-137``).
 
+``encoder="dsvt"`` (``DetectorConfig.dsvt_pillar()``, no counterpart) is
+DSVT-Pillar: the dynamic pillar encoder (``vfe.py:DynPillarVFE``), the
+sparse window transformer over the pillars (``dsvt.py``), the scatter to
+the BEV image, OpenPCDet's ``BaseBEVResBackbone`` (``bev_backbone.py``)
+and the port's CenterHead at the pillar pitch.  Its
+BatchNorms serve in eval mode, folded once by ``fold`` after the weights
+are loaded and the model moved to its device.
+
 ``DetectorConfig`` carries the reference's fields, properties and the two
 capacities that ship trained weights.  ``CenterPointDetector`` takes a
 ``dtype`` (the reference's bf16 by default; float32 builds a twin for
@@ -28,15 +36,22 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.voxelize import voxelize_dynamic
+from ..ops.voxelize import pillarize_dynamic, voxelize_dynamic
 from ..utils.spans import span
-from .bev_backbone import BEVBackbone
+from .bev_backbone import BaseBEVResBackbone, BEVBackbone
 from .center_head import HEATMAP_BIAS, CenterHead, decode_boxes
-from .vfe import (POINT_FEATURES, MeanVFE, PillarVFE, VoxelHeightEncoder, at_least_float32,
-                  scatter_to_bev, scatter_to_bev_s2d, scatter_to_voxel_bev)
+from .dsvt import DSVT, DSVTConfig
+from .vfe import (POINT_FEATURES, DynPillarVFE, MeanVFE, PillarVFE, VoxelHeightEncoder,
+                  at_least_float32, scatter_to_bev, scatter_to_bev_s2d, scatter_to_voxel_bev)
 
 # the axes of an (H, W, c) map, summed per frame by the loss
 _HWC = (-3, -2, -1)
+# DSVT-Pillar's pillar rows (DetectorConfig.dsvt_pillar)
+DSVT_PILLARS = 73728
+# OpenPCDet BaseBEVResBackbone of dsvt_pillar.yaml: 1 + LAYER_NUMS [1, 2, 2]
+# blocks, LAYER_STRIDES [1, 2, 2], NUM_FILTERS [128, 128, 256], 128 up each
+DSVT_BACKBONE = dict(layer_nums=(2, 3, 3), channels=(128, 128, 256), strides=(1, 2, 2),
+                     up_channels=(128, 128, 128))
 
 
 class DetectorConfig(NamedTuple):
@@ -52,7 +67,9 @@ class DetectorConfig(NamedTuple):
     bev_stride: int = 1
     # "pillar": PillarVFE -> scatter_to_bev; "voxel": MeanVFE over 3D voxels
     # -> height-compressed BEV volume -> VoxelHeightEncoder (voxel_size[2]
-    # sets the z bins)
+    # sets the z bins); "dsvt": DynPillarVFE (no cap on points a pillar:
+    # max_points_per_voxel is not read) -> DSVT -> scatter_to_bev ->
+    # BaseBEVResBackbone, with max_voxels the pillar capacity
     encoder: str = "pillar"
     # space-to-depth scatter factor: pillars at the fine pitch scattered into
     # a grid_hw / s2d_factor image with s2d_factor^2 channel groups; 1 = off
@@ -98,12 +115,32 @@ class DetectorConfig(NamedTuple):
                    max_voxels=131072, max_points_per_voxel=5,
                    pillar_filters=64, bev_stride=2, s2d_factor=2)
 
+    @classmethod
+    def dsvt_pillar(cls) -> "DetectorConfig":
+        """DSVT-Pillar at its published Waymo sizes (OpenPCDet
+        ``dsvt_pillar.yaml``): 0.32 m pillars over +-74.88 m, z -2..4 (a
+        468^2 grid), 192-wide pillars, the head at the pillar pitch, 3
+        classes; 73,728 pillar rows, 1.33 times the most that any of 4,400
+        169,600-point Waymo-top-like sweeps of the benchmark's drives
+        filled (PERF.md §4)."""
+        return cls(pc_range=(-74.88, -74.88, -2.0, 74.88, 74.88, 4.0),
+                   voxel_size=(0.32, 0.32, 6.0), max_voxels=DSVT_PILLARS,
+                   max_points_per_voxel=0, pillar_filters=192, bev_stride=1,
+                   encoder="dsvt")
+
 
 class CenterPointDetector(nn.Module):
     def __init__(self, cfg: DetectorConfig = DetectorConfig(),
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        if cfg.encoder == "dsvt":
+            self.vfe = DynPillarVFE(cfg.pillar_filters, tuple(cfg.voxel_size),
+                                    tuple(cfg.pc_range), dtype=dtype)
+            self.dsvt = DSVT(DSVTConfig(d_model=cfg.pillar_filters), cfg.grid_hw)
+            self.backbone = BaseBEVResBackbone(cfg.pillar_filters, **DSVT_BACKBONE)
+            self.head = CenterHead(self.backbone.out_channels, cfg.num_classes, dtype=dtype)
+            return
         if cfg.encoder == "voxel":
             self.mean_vfe = MeanVFE()
             self.encoder = VoxelHeightEncoder(cfg.grid_z * POINT_FEATURES, cfg.pillar_filters,
@@ -116,10 +153,22 @@ class CenterPointDetector(nn.Module):
         self.backbone = BEVBackbone(bev_channels, strides=(cfg.bev_stride, 2, 2), dtype=dtype)
         self.head = CenterHead(self.backbone.out_channels, cfg.num_classes, dtype=dtype)
 
+    def fold(self) -> "CenterPointDetector":
+        """Fold each eval-mode BatchNorm into the layer before it and cast
+        those weights to ``dtype`` (the DSVT path's; a no-op elsewhere).
+        Call it after the weights are loaded and the model is on its
+        device; the model serves only folded."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "fold"):
+                m.fold(self.dtype)
+        return self
+
     def encode(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """points (N, 4), mask (N,) -> the BEV image (H, W, C) the backbone
         takes."""
         cfg = self.cfg
+        if cfg.encoder == "dsvt":
+            return self._encode_dsvt(points, mask)
         with span("detect/voxelize"):
             voxels, coords, num_pts, vmask = voxelize_dynamic(
                 points, mask, cfg.voxel_size, cfg.pc_range, cfg.max_voxels,
@@ -135,6 +184,18 @@ class CenterPointDetector(nn.Module):
             if cfg.s2d_factor > 1:
                 return scatter_to_bev_s2d(feats, coords, vmask, cfg.grid_hw, cfg.s2d_factor)
             return scatter_to_bev(feats, coords, vmask, cfg.grid_hw)
+
+    def _encode_dsvt(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        with span("detect/voxelize"):
+            order, seg, cells, coords, pmask, found = pillarize_dynamic(
+                points, mask, cfg.voxel_size, cfg.pc_range, cfg.max_voxels)
+        with span("detect/vfe"):
+            feats = self.vfe(points[order], seg, cells, cfg.max_voxels)
+        with span("detect/dsvt"):
+            feats = self.dsvt(feats, coords, pmask, found)
+        with span("detect/scatter"):
+            return scatter_to_bev(feats, coords, pmask, cfg.grid_hw)
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         """points (N, 4), mask (N,) -> prediction maps, each (H, W, c)

@@ -14,11 +14,14 @@ in float32.
 
 ``load_params`` returns the tree as nested dicts of numpy arrays;
 ``convert.detector_params_from_flax`` turns a detector's tree into a
-``state_dict``.  ``save_params`` writes such a tree as flax's ``to_bytes``
-writes it, byte for byte (``packb`` packs as msgpack-python does with
-``use_bin_type`` and the smallest form of each number, string and
-container; arrays over ``MAX_CHUNK_BYTES`` are chunked as flax chunks
-them).
+``state_dict``.  A model with no flax counterpart (DSVT-Pillar) is kept by
+its PyTorch names: ``state_dict_to_tree`` nests a ``state_dict`` by the
+dotted parts of its keys under ``"params"`` (buffers too, such as
+BatchNorm's running statistics), ``tree_to_state_dict`` undoes it.
+``save_params`` writes such a tree as flax's ``to_bytes`` writes it, byte
+for byte (``packb`` packs as msgpack-python does with ``use_bin_type`` and
+the smallest form of each number, string and container; arrays over
+``MAX_CHUNK_BYTES`` are chunked as flax chunks them).
 """
 from __future__ import annotations
 
@@ -281,3 +284,32 @@ def save_params(path: str, params: Any) -> str:
     with open(path, "wb") as f:
         f.write(msgpack_serialize(params))
     return path
+
+
+def state_dict_to_tree(state: "dict[str, Any]") -> dict:
+    """``{"params": {...}}``: a ``state_dict``'s tensors as numpy arrays (of
+    their own dtypes) nested by the dotted parts of their names."""
+    params: dict = {}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(t.detach().cpu().numpy())
+    return {"params": params}
+
+
+def tree_to_state_dict(tree: Any) -> "dict[str, Any]":
+    """The ``state_dict`` (CPU tensors) that ``state_dict_to_tree`` nested:
+    ``{"params": {...}}`` or the inner dict."""
+    import torch
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + ".")
+            else:
+                out[prefix + k] = torch.as_tensor(np.array(v))
+    walk(tree.get("params", tree), "")
+    return out

@@ -10,6 +10,11 @@
   group (y%f)*f + x%f) for the 0.1 m capacity.
 - ``MeanVFE``, ``scatter_to_voxel_bev`` and ``VoxelHeightEncoder``
   (``:19-26, 61-98``): the ``encoder="voxel"`` branch.
+- ``DynPillarVFE`` (no counterpart): DSVT-Pillar's dynamic pillar encoder,
+  OpenPCDet's ``DynPillarVFE`` with its two ``PFNLayerV2`` layers: a max
+  over all of a pillar's points (``ops/voxelize.py:pillarize_dynamic``).
+  Its Linear layers are ``FoldedLinear``: eval-mode BatchNorm folded into
+  the weights once, by ``fold``, before the model serves.
 
 The scatters return (H, W, C) images, the reference's layout; the
 detector views them as (1, C, H, W) in channels-last memory, which costs
@@ -78,6 +83,86 @@ class PillarVFE(nn.Module):
         x = torch.where(pmask, x, -torch.inf)
         x = torch.amax(x, dim=1)
         return torch.where(torch.isfinite(x), x, 0.0)
+
+
+def fold_batchnorm(weight: torch.Tensor, bias, norm: nn.modules.batchnorm._BatchNorm,
+                   out_dim: int = 0):
+    """(weight, bias) of a layer followed by ``norm`` in eval mode, as one
+    layer, float32: the scale ``gamma / sqrt(var + eps)`` multiplies the
+    weight along its output axis ``out_dim`` (1 for a transposed conv)."""
+    scale = norm.weight / torch.sqrt(norm.running_var + norm.eps)
+    shape = [1] * weight.dim()
+    shape[out_dim] = -1
+    b = norm.bias - norm.running_mean * scale
+    if bias is not None:
+        b = b + bias * scale
+    return weight * scale.reshape(shape), b
+
+
+class FoldedLinear(nn.Module):
+    """A Linear layer, with ``bn`` followed by eval-mode BatchNorm1d, that
+    serves as one Linear of weights folded and cast to ``dtype`` by
+    ``fold`` (non-persistent buffers: the checkpoint keeps the layers as
+    published)."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True, bn: bool = False,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.linear = nn.Linear(cin, cout, bias=bias)
+        self.norm = nn.BatchNorm1d(cout, eps=eps) if bn else None
+
+    def fold(self, dtype: torch.dtype) -> None:
+        w, b = self.linear.weight, self.linear.bias
+        if self.norm is not None:
+            w, b = fold_batchnorm(w, b, self.norm)
+        self.register_buffer("w", w.detach().to(dtype), persistent=False)
+        self.register_buffer("b", None if b is None else b.detach().to(dtype), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.w, self.b)
+
+
+class DynPillarVFE(nn.Module):
+    """Dynamic pillar encoder (OpenPCDet ``DynPillarVFE``, ``NUM_FILTERS``
+    [f, f]): each point's 4 columns, its offset from its pillar's mean (3)
+    and from the pillar's centre (x, y; z from the middle of the z range)
+    go through Linear 10 -> f/2, BN, ReLU; each point's result joined to
+    its pillar's max is f wide; then Linear f -> f, BN, ReLU and a max over
+    all of the pillar's points.  Offsets in float32, the layers in
+    ``dtype``."""
+
+    def __init__(self, num_filters: int = 192,
+                 voxel_size: Tuple[float, float, float] = (0.32, 0.32, 6.0),
+                 pc_range: Tuple[float, ...] = (-74.88, -74.88, -2.0, 74.88, 74.88, 4.0),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.voxel_size, self.pc_range, self.dtype = tuple(voxel_size), tuple(pc_range), dtype
+        self.pfn0 = FoldedLinear(POINT_FEATURES + 6, num_filters // 2, bias=False, bn=True,
+                                 eps=1e-3)
+        self.pfn1 = FoldedLinear(num_filters, num_filters, bias=False, bn=True, eps=1e-3)
+
+    def forward(self, points: torch.Tensor, seg: torch.Tensor, cells: torch.Tensor,
+                rows: int) -> torch.Tensor:
+        """points (N, 4) in pillar order, seg (N,) their pillar rows (``rows``
+        for none), cells (N, 2) [y, x] -> (rows, num_filters) in ``dtype``
+        (0 for an empty row)."""
+        xyz = points[:, :3]
+        sums = xyz.new_zeros(rows + 1, 3).index_add_(0, seg, xyz)
+        cnt = xyz.new_zeros(rows + 1).index_add_(0, seg, xyz.new_ones(xyz.shape[0]))
+        mean = sums / torch.clamp(cnt, min=1.0)[:, None]
+        vx, vy, vz = self.voxel_size
+        x0, y0, z0 = self.pc_range[:3]
+        centre = torch.stack([cells[:, 1].to(xyz.dtype) * vx + (vx / 2 + x0),
+                              cells[:, 0].to(xyz.dtype) * vy + (vy / 2 + y0),
+                              xyz.new_full((xyz.shape[0],), vz / 2 + z0)], dim=-1)
+        feats = torch.cat([points[:, :POINT_FEATURES], xyz - mean[seg], xyz - centre], dim=-1)
+        x = torch.relu(self.pfn0(feats.to(self.dtype)))
+        idx = seg[:, None].expand(-1, x.shape[1])
+        # ReLU outputs are >= 0: a max that starts from 0 is the pillar's max
+        pmax = x.new_zeros(rows + 1, x.shape[1]).scatter_reduce_(0, idx, x, "amax")
+        x = torch.relu(self.pfn1(torch.cat([x, pmax[seg]], dim=-1)))
+        idx = seg[:, None].expand(-1, x.shape[1])
+        return x.new_zeros(rows + 1, x.shape[1]).scatter_reduce_(0, idx, x, "amax")[:rows]
 
 
 def _scatter_rows(features: torch.Tensor, flat: torch.Tensor, rows: int) -> torch.Tensor:

@@ -4,6 +4,9 @@
   sorted-key order, the reference's order.
 - ``voxelize_dynamic`` (``:71-129``): points grouped into a fixed budget of
   voxels (pillars) of a fixed number of points each, for the detector.
+- ``pillarize_dynamic`` (no counterpart): points grouped into a fixed budget
+  of pillars with no cap on the points a pillar, for DSVT-Pillar's dynamic
+  pillar encoder (``models/vfe.py:DynPillarVFE``).
 
 Static shapes and validity masks as in the reference; no host sync.
 """
@@ -129,3 +132,46 @@ def voxelize_dynamic(points: torch.Tensor, mask: torch.Tensor, voxel_size, pc_ra
         0, seg_c[:, None].expand(n, 3),
         torch.where((keep & first)[:, None], coords_zyx, -1), reduce="amax")[:V]
     return voxels, coords, num_pts, num_pts > 0
+
+
+def pillarize_dynamic(points: torch.Tensor, mask: torch.Tensor, voxel_size, pc_range,
+                      max_pillars: int):
+    """Group points into pillars with no cap on the points a pillar, as
+    OpenPCDet's ``DynPillarVFE`` groups them: a point belongs to the pillar
+    ``floor((p - min) / size)`` of its x and y (float32 divide) where both
+    lie inside the grid; z is not checked.
+
+    points: (N, D) xyz + features; voxel_size (3,), pc_range (6,), host
+    numbers.  Returns, with P = ``max_pillars``:
+      order   (N,) the points in pillar order (a stable sort by pillar key)
+      seg     (N,) the pillar row of each point of ``points[order]``; P for
+              a point outside the grid, masked, or in a pillar past P
+      cells   (N, 2) int32 [y, x] cell of each point of ``points[order]``
+      coords  (P, 3) int32 [z, y, x] of each pillar (z is 0)
+      pmask   (P,) bool, the pillars the frame fills
+      found   () int64, the pillars the frame has (more than P: some dropped)
+
+    Pillars are numbered in key order (y, then x); no host sync."""
+    n = points.shape[0]
+    P = int(max_pillars)
+    vs = np.asarray(voxel_size, np.float32)
+    pr = np.asarray(pc_range, np.float32)
+    gsz = np.floor((pr[3:5] - pr[:2]) / vs[:2] + np.float32(0.5)).astype(np.int64)
+    consts = to_device(np.stack([pr[:2], vs[:2], gsz.astype(np.float32)]), points.device,
+                       points.dtype)
+    c = torch.floor((points[:, :2] - consts[0]) / consts[1]).to(torch.int32)
+    in_range = torch.all((c >= 0) & (c < consts[2]), dim=-1) & mask
+    key = torch.where(in_range, c[:, 1] * int(gsz[0]) + c[:, 0], INT_SENTINEL)
+    key_s, order = torch.sort(key, stable=True)
+    cells = c[order].flip(-1)
+    first = torch.ones_like(key_s, dtype=torch.bool)
+    first[1:] = key_s[1:] != key_s[:-1]
+    first &= key_s != INT_SENTINEL
+    seg = torch.cumsum(first, 0) - 1
+    seg = torch.where((key_s != INT_SENTINEL) & (seg < P), seg, P)
+    zyx = torch.cat([torch.zeros_like(cells[:, :1]), cells], dim=-1)
+    coords = torch.zeros(P + 1, 3, dtype=torch.int32, device=points.device).index_put_(
+        (torch.where(first, seg, P),), zyx)[:P]
+    found = first.sum()
+    pmask = torch.arange(P, device=points.device) < found
+    return order, seg, cells, coords, pmask, found

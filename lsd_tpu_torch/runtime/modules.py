@@ -549,8 +549,9 @@ def build_detector_predict_fn(weights: Optional[str] = None, det_cfg=None, with_
     """A ``(points, mask) -> (boxes, scores, labels, keep)`` function (with
     ``with_seg`` also the (H, W, 1) freespace logits) from the port's
     CenterPoint detector in bf16, as the reference serves it, with
-    ``weights`` (a flax msgpack checkpoint) and the reference's
-    postprocessing.
+    ``weights`` (a flax msgpack checkpoint; for DSVT-Pillar, which ships
+    none, one that ``params_io.state_dict_to_tree`` nested) and the
+    reference's postprocessing.
 
     With no ``weights`` the shipped checkpoint that matches the capacity is
     used; where none matches this raises, unless ``allow_random_init``
@@ -577,7 +578,7 @@ def build_detector_predict_fn(weights: Optional[str] = None, det_cfg=None, with_
         model.load_state_dict(detector_params_from_flax(load_params(weights)))
     else:
         init_detector_params(model, torch.Generator().manual_seed(0))
-    model = model.to(dev).eval().requires_grad_(False)
+    model = model.to(dev).eval().requires_grad_(False).fold()
     pcfg = PostProcessConfig()
 
     @torch.inference_mode()
@@ -643,7 +644,9 @@ class DetectModule(Module):
                     DetectorConfig.true_reference_capacity()
                     if cap in ("true_reference", "deployed")
                     else DetectorConfig.reference_capacity()
-                    if cap == "reference" else DetectorConfig())
+                    if cap == "reference"
+                    else DetectorConfig.dsvt_pillar()
+                    if cap == "dsvt_pillar" else DetectorConfig())
                 self.predict_fn = build_detector_predict_fn(
                     weights=getattr(cfg.detection, "weights", None),
                     det_cfg=self.det_cfg_ref, with_seg=True, device=self.device)

@@ -4,7 +4,9 @@
                                                    [--out profile_detector_out]
 
 Serves a shipped checkpoint (``--capacity reference``: 0.2 m pillars,
-640^2 grid; ``true_reference``: 0.1 m pillars, 1280^2 fine grid) through
+640^2 grid; ``true_reference``: 0.1 m pillars, 1280^2 fine grid), or
+DSVT-Pillar with seeded random weights (``dsvt_pillar``: none ship; one
+frame a call, no accumulation), through
 ``runtime.modules.build_detector_predict_fn`` in bf16, handed to a
 ``runtime.modules.DetectModule`` (``detect_module``), and drives the
 module's ``process`` frame by frame: parsing, two accumulated frames,
@@ -21,7 +23,8 @@ frame.  It prints, and writes as JSON:
   program's own: ``parse``, ``accumulate``, ``upload``, ``voxelize``,
   ``vfe``, ``scatter``, ``backbone``, ``head``, ``decode``, ``nms``
   (thresholds and the greedy sweep), ``fetch``, ``freespace``,
-  ``tracker``;
+  ``tracker``; for DSVT-Pillar also ``dsvt`` and its ``partition``,
+  ``posembed``, ``attention`` and ``ffn``;
 - the kernels and the host-side operators that take the most time;
 - host syncs per frame by source line.
 
@@ -54,7 +57,8 @@ SPANS = ("detect/",)
 # the IoUs the Waymo Open Dataset scores at: vehicle, pedestrian, cyclist
 WOD_IOUS = {0: 0.7, 1: 0.5, 2: 0.5}
 CAPACITIES = {"reference": DetectorConfig.reference_capacity,
-              "true_reference": DetectorConfig.true_reference_capacity}
+              "true_reference": DetectorConfig.true_reference_capacity,
+              "dsvt_pillar": DetectorConfig.dsvt_pillar}
 WARM, SYNC_FRAMES = 3, 3
 
 
@@ -109,15 +113,16 @@ def ego_drive(n_frames: int, seed: int = 7, speed: float = 10.0, dt: float = 0.1
     return frames, (sc["gt_boxes"][gm], sc["gt_labels"][gm])
 
 
-def detect_module(predict, det_cfg: DetectorConfig, device) -> DetectModule:
+def detect_module(predict, det_cfg: DetectorConfig, device,
+                  accum_frames: int = 2) -> DetectModule:
     """A ``DetectModule`` serving ``predict`` (a ``build_detector_predict_fn``
     function with ``with_seg``, built at ``det_cfg``) through ``set_model``:
-    two accumulated frames, freespace, the tracker and the ROI filter the
-    drives use, a square of 60 m around the vehicle less the vehicle's own
-    footprint."""
+    ``accum_frames`` accumulated frames, freespace, the tracker and the ROI
+    filter the drives use, a square of 60 m around the vehicle less the
+    vehicle's own footprint."""
     r, ego = 60.0, [[-2.5, -1.2], [2.5, -1.2], [2.5, 1.2], [-2.5, 1.2]]
     cfg = AttrDict(dict(
-        input=dict(mode="offline"), detection=dict(enable=False, accum_frames=2),
+        input=dict(mode="offline"), detection=dict(enable=False, accum_frames=accum_frames),
         roi=[dict(contour=[[-r, -r], [r, -r], [r, r], [-r, r]], is_included=True),
              dict(contour=ego, is_included=False)]))
     module = DetectModule(cfg, device=device)
@@ -181,14 +186,17 @@ def main(argv=None) -> dict:
     dev = resolve_device(None)
 
     det_cfg = CAPACITIES[args.capacity]()
-    predict = build_detector_predict_fn(det_cfg=det_cfg, with_seg=True, device=dev)
+    dsvt = det_cfg.encoder == "dsvt"
+    predict = build_detector_predict_fn(det_cfg=det_cfg, with_seg=True, device=dev,
+                                        allow_random_init=dsvt)
     frames, _ = ego_drive(WARM + args.frames + SYNC_FRAMES)
     dicts = [frame_dict(*f, k) for k, f in enumerate(frames)]
-    module = detect_module(predict, det_cfg, dev)
+    module = detect_module(predict, det_cfg, dev, accum_frames=1 if dsvt else 2)
     for d in dicts[:WARM]:
         module.process(dict(d))
+    acc = module.accumulator
     report = dict(card=_card(), capacity=args.capacity, frames=args.frames,
-                  points_per_frame=2 * module.accumulator.cap,
+                  points_per_frame=acc.num_frames * acc.cap if acc else int(frames[0][1].sum()),
                   **frame_profile(module, dicts[WARM:WARM + args.frames],
                                   dicts[WARM + args.frames:]))
     out = Path(args.out)

@@ -87,6 +87,19 @@ The multi-device code: the map-sharded LIO step on one NCCL rank follows
 ``lio_step`` within 1e-3 m over six scans and launches the p2p kernel
 ``max_iters`` times per scan.
 
+DSVT-Pillar: the set-attention kernel against ``set_attention_plain`` on
+each of the four partitions of a bench-size frame (the pillars of one
+169,600-point sweep of the benchmark's drive, seeded bf16 Q, K and V)
+within 1e-2 of the largest output (both sum in float32 in another order
+before one bf16 rounding: one bf16 step is 2^-8 of a value); a forward of
+the DSVT backbone on that frame is one kernel launch a layer and makes no
+host sync (the partition, the pillars and the encoder neither); a CUDA-graph
+replay equals a direct call bitwise; the served bf16 model through
+``build_detector_predict_fn`` on one frame agrees with the float32
+``dsvt_plain.py`` within ``port_bench/limits/dsvt-drive.json``, the limits
+that decide the benchmark's ``correct``, on the benchmark's seeded weights
+(non-trivial biases, norm scales and BatchNorm statistics).
+
 The online system: frames that the online source captured from live UDP
 traffic through ``SlamModule`` on the card and on the CPU, poses within
 0.02 m; ``run``'s ``start_system`` with no device puts ``Perception`` and
@@ -1356,3 +1369,126 @@ def test_run_server_on_card_answers_status(cuda, tmp_path):
     finally:
         stop_system(p, srv, upgrade)
         clear_interfaces()
+
+
+# -- DSVT-Pillar -------------------------------------------------------------
+
+def _waymo_frame(seed=11):
+    import json
+    from pathlib import Path
+    from port_bench.gen import street
+    root = Path(__file__).resolve().parent.parent
+    tr = json.loads((root / "port_bench" / "traffic" / "urban-drive-waymo-top.json").read_text())
+    return tr, street.Street(tr, seed).frame(0)
+
+
+def _dsvt_frame(dev, seed=11):
+    """A bench-size frame's pillars and partitions, seeded bf16 Q|K and V."""
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.models.dsvt import DSVTConfig, partition_shift
+    from lsd_tpu_torch.ops.voxelize import pillarize_dynamic
+    _, frame = _waymo_frame(seed)
+    pts = torch.as_tensor(frame, device=dev)
+    cfg = DetectorConfig.dsvt_pillar()
+    pil = pillarize_dynamic(pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                            cfg.voxel_size, cfg.pc_range, cfg.max_voxels)
+    coords, pmask = pil[3], pil[4]
+    parts = [p for win, sh in DSVTConfig().shifts()
+             for p in partition_shift(coords, pmask, win, sh, cfg.grid_hw, 36)[:2]]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qk = torch.randn(cfg.max_voxels, 384, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(cfg.max_voxels, 192, generator=g, device=dev).to(torch.bfloat16)
+    return cfg, pts, pil, parts, qk, v
+
+
+def test_dsvt_kernel_matches_plain_at_bench_size(cuda):
+    from lsd_tpu_torch.models.dsvt import WRITE, set_attention, set_attention_plain
+    _, _, pil, parts, qk, v = _dsvt_frame(cuda)
+    assert 30000 < int(pil[4].sum()) < 73728
+    for part in parts:
+        got = set_attention(qk[:, :192], qk[:, 192:], v, part, 8)
+        want = set_attention_plain(qk[:, :192], qk[:, 192:], v, part, 8)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert err <= 1e-2, float(err)
+        written = torch.zeros(v.shape[0], dtype=torch.bool, device=cuda)
+        written[part.inds.long()[(part.flags & WRITE).bool()]] = True
+        assert torch.equal(written, pil[4])             # every pillar once, nothing else
+        assert not got[~written].any()
+        assert torch.equal(got, set_attention(qk[:, :192], qk[:, 192:], v, part, 8))
+
+
+def _dsvt_model(dev, seed=0):
+    from lsd_tpu_torch.models.detector import (CenterPointDetector, DetectorConfig,
+                                               init_detector_params)
+    model = CenterPointDetector(DetectorConfig.dsvt_pillar())
+    init_detector_params(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval().requires_grad_(False).fold()
+
+
+def test_dsvt_is_one_launch_per_layer_and_makes_no_sync(cuda):
+    from lsd_tpu_torch.models.dsvt import set_attention
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    model = _dsvt_model(cuda)
+    _, pts, _, _, _, _ = _dsvt_frame(cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    with torch.inference_mode():
+        model.encode(pts, mask)
+        before = set_attention.launches
+        _, sites = sync_sites(lambda: model.encode(pts, mask))
+    assert sites == {}, f"the DSVT path made host syncs: {sites}"
+    assert set_attention.launches == before + 8
+
+
+def test_dsvt_kernel_graph_replay_equals_a_direct_call(cuda):
+    from lsd_tpu_torch.models.dsvt import set_attention
+    _, _, _, parts, qk, v = _dsvt_frame(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        set_attention(qk[:, :192], qk[:, 192:], v, parts[1], 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = set_attention(qk[:, :192], qk[:, 192:], v, parts[1], 8)
+    for scale in (1.0, 0.5):       # the replay reads V as it is now
+        v.mul_(scale)
+        graph.replay()
+        direct = set_attention(qk[:, :192], qk[:, 192:], v, parts[1], 8)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, direct)
+
+
+def test_dsvt_pillar_on_card_matches_plain_reference(cuda, tmp_path):
+    import json
+    from pathlib import Path
+    from lsd_tpu_torch.models import dsvt_plain
+    from lsd_tpu_torch.models.detector import DetectorConfig
+    from lsd_tpu_torch.models.params_io import load_params
+    from lsd_tpu_torch.runtime.modules import build_detector_predict_fn
+    from port_bench.drivers.dsvt_drive import (candidates, check_numbers, frame_gaps,
+                                               numpy_candidates, write_weights)
+    root = Path(__file__).resolve().parent.parent
+    limits = json.loads((root / "port_bench" / "limits" / "dsvt-drive.json").read_text())
+    conf = json.loads((root / "port_bench" / "configs" / "dsvt-pillar-waymo.json").read_text())
+    cfg = DetectorConfig.dsvt_pillar()
+    # the benchmark's weights: biases, norm scales and BatchNorm statistics drawn too
+    path = str(write_weights(5, tmp_path / "dsvt.msgpack"))
+    predict = build_detector_predict_fn(weights=path, det_cfg=cfg, device=cuda)
+    _, frame = _waymo_frame(seed=5)
+    rec = {}
+    model = predict.model
+    encode, decode = model.encode, model.decode
+    model.encode = lambda p, m: rec.setdefault("features", encode(p, m))
+    model.dsvt.blocks[0].layers[0].out.register_forward_pre_hook(
+        lambda mod, args: rec.setdefault("attention0", args[0].clone()))
+
+    def keep(preds):
+        rec.update(preds)
+        rec["pre"] = numpy_candidates(decode(preds))
+        return decode(preds)
+    model.decode = keep
+    predict(frame, np.ones(len(frame), bool))
+    ref = dsvt_plain.forward(dsvt_plain.flatten(load_params(path)), frame, cuda)
+    gaps = check_numbers([frame_gaps(rec, ref, candidates(ref, conf))])
+    assert all(v <= limits[k] for k, v in gaps.items()), gaps

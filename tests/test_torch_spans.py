@@ -115,6 +115,31 @@ def test_detect_module_spans(detect_run):
         assert [g for g in got if g[0] == n] == [(n, None)] * 2
 
 
+# DSVT-Pillar's spans inside ``detect/dsvt`` and their count a frame
+DSVT_SPANS = {"detect/dsvt": (None, 1), "detect/dsvt/partition": ("detect/dsvt", 1),
+              "detect/dsvt/posembed": ("detect/dsvt", 4),
+              "detect/dsvt/attention": ("detect/dsvt", 8), "detect/dsvt/ffn": ("detect/dsvt", 8)}
+
+
+def test_dsvt_spans_and_nesting():
+    cfg = DetectorConfig.dsvt_pillar()._replace(pc_range=(-5.12, -5.12, -2.0, 5.12, 5.12, 4.0),
+                                                max_voxels=256)
+    predict = build_detector_predict_fn(det_cfg=cfg, with_seg=True, allow_random_init=True,
+                                        device=CPU)
+    rng = np.random.default_rng(4)
+    pts = np.concatenate([rng.uniform(-5, 5, (1024, 2)), rng.uniform(-1.5, 1.5, (1024, 1)),
+                          rng.uniform(0, 1, (1024, 1))], axis=1).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        predict(pts, np.ones(len(pts), bool))
+    got = spans_of(prof, "detect/dsvt")
+    for name, (parent, count) in DSVT_SPANS.items():
+        assert [g for g in got if g[0] == name] == [(name, parent)] * count, name
+    names = {n for n, _ in spans_of(prof, "detect/")}
+    assert names == set(DSVT_SPANS) | {"detect/upload", "detect/voxelize", "detect/vfe",
+                                       "detect/scatter", "detect/backbone", "detect/head",
+                                       "detect/decode", "detect/nms"}
+
+
 def test_span_is_the_shared_null_context_without_a_profiler():
     assert not torch.autograd._profiler_enabled()
     assert span("lio_step/front") is NO_SPAN and span("detect/parse") is NO_SPAN
