@@ -16,11 +16,17 @@ Phases, in order; any failure exits non-zero:
    slots and with them laid into the pipeline's 64); check that a call is
    one launch, that two launches and a CUDA-graph replay agree bitwise;
    time kernel and plain version beside the bound and the launch floor
-   (the device time of a one-element PyTorch op).
+   (the device time of a one-element PyTorch op).  The degeneracy gate
+   (``csrc/lio_gate.cu``) likewise, on the main path's first ``HtH`` and on
+   random pose blocks with 0 to 3 eigenvalues under ``degen_thresh``.
 3. Set the launch counts to 0, time the main path over the timed scans,
-   read the counts, and check the trajectory (finite state, ATE < 0.1 m,
-   ``bench.py``'s own sanity bound) and that the p2p kernel ran
-   ``max_iters`` times and the IMU kernel once per scan.
+   read the counts (each kernel counts its launches where it runs,
+   ``csrc/launch_count.cuh``, so a replayed graph's count), and check the trajectory (finite state, ATE < 0.1 m,
+   ``bench.py``'s own sanity bound) and that the p2p kernel and the gate
+   ran ``max_iters`` times and the IMU kernel once per scan.  The main path
+   replays the step as CUDA graphs (``slam/lio_graph.py``); the same scans
+   from the same state through the eager body are timed beside it, and the
+   graph runner's counters printed.
 2b. The DSVT set-attention kernel (``csrc/dsvt_set_attn.cu``) at the
    published widths on a bench-size frame: the pillars of one 169,600-point
    sweep of ``port_bench/traffic/urban-drive-waymo-top.json`` and seeded
@@ -509,6 +515,11 @@ H100_BF16_FLOPS = 989e12            # bf16 tensor cores, dense
 # rounding, so an output can land one bf16 step (2^-8 of it) apart
 DSVT_ATTN_TOL = 1e-2
 DSVT_SEED = 11
+# phase 2: the gate kernel against its plain version: both decompose the
+# same float32 block, the kernel in float64, the plain version in float32;
+# E's entries are those of a projection (at most 1), and the blocks' kept
+# and dropped eigenvalues lie at least 3.5 times the threshold apart
+GATE_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -538,20 +549,31 @@ def time_ms(fn, n=N_TIMING):
     return float(np.median(times))
 
 
-def device_ms(fn, match="", n=N_TIMING, tries=5, required=True):
-    """(device ms, kernels) per ``fn()``: the summed time and the count of
-    the kernels whose name contains ``match`` that n calls launch, from the
-    profiler's device trace, over n.  The profiler now and then drops a
-    couple of kernel records from a trace, so only a trace that holds the
-    same whole number of kernels for every call counts; another is taken
-    again, up to ``tries`` times.  If none is whole the run fails, or, when
-    the time is not ``required``, (None, 0) is returned."""
+def device_ms(fn, match="", n=N_TIMING, tries=5, required=True, launches=None):
+    """(device ms, kernels, whole) per ``fn()``: the summed time and the
+    count of the kernels whose name contains ``match`` that n calls launch,
+    from the profiler's device trace, over n.  With ``launches``, a
+    kernel's ``LaunchCount``, the kernels are counted where they run
+    instead, exactly, and a count that is not a whole number a call fails
+    the run.  The profiler now and then drops kernel records from a trace
+    or carries some over from before it: an empty trace is taken first, to
+    take what an earlier one left behind, then a trace that holds the
+    kernels of every call is sought, up to ``tries`` traces.  Where one is
+    found, ``whole`` is True.  Else the last trace gives each kernel name's
+    mean time, taken as many times a call as the trace holds it rounded
+    (the exact count with ``launches``), and ``whole`` is False; where it
+    holds no kernel at all the run fails, or, when the time is not
+    ``required``, (None, 0, False) is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        pass
     for k in range(tries):
+        if launches is not None:
+            launches.reset()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -559,18 +581,38 @@ def device_ms(fn, match="", n=N_TIMING, tries=5, required=True):
         ev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
         count = sum(e.count for e in ev)
-        per_call = round(count / n)
+        if launches is None:
+            per_call = round(count / n)
+        else:
+            launched = launches.read()
+            if launched % n:
+                fail(f"{launches.name}: {launched} launches counted on the device for {n} calls")
+            per_call = launched // n
         if per_call >= 1 and count == per_call * n:
             if k:
                 log(f"the profiler dropped records of {match or 'all'!r} kernels in "
                     f"{k} trace(s), taken again")
-            return sum(e.self_device_time_total for e in ev) / 1e3 / n, per_call
+            return sum(e.self_device_time_total for e in ev) / 1e3 / n, per_call, True
+    if per_call >= 1 and count:
+        # records dropped or carried over leave each name's mean time as it was
+        ms = sum(e.self_device_time_total / e.count
+                 * (per_call if launches is not None else round(e.count / n)) for e in ev) / 1e3
+        log(f"no trace of {match or 'all'!r} kernels was whole in {tries} ({count} records "
+            f"for {per_call * n} launches in the last): device time from each kernel's mean")
+        return ms, per_call, False
     msg = (f"the profiler recorded {count} kernels matching {match!r} for {n} calls "
            f"in the last of {tries} traces")
     if required:
         fail(msg)
     log(msg + "; no device time taken")
-    return None, 0
+    return None, 0, False
+
+
+def partial_traces(whole: bool, plain_whole: bool) -> dict:
+    """For a kernel's report: which of its device times ``device_ms`` took
+    from each kernel's mean in a trace that missed records, if any."""
+    names = [k for k, ok in (("ms", whole), ("plain_ms", plain_whole)) if not ok]
+    return dict(from_partial_trace=names) if names else {}
 
 
 def card_line() -> str:
@@ -676,13 +718,15 @@ def check_p2p(args, max_resid, report):
     # kernel (of all the plain version's kernels), and each call's time
     # between CUDA events; the launch floor is the device time of a
     # one-element op
-    ms, per_call = device_ms(lambda: p2p_reduce(*args, max_resid), match="p2p_")
+    ms, per_call, whole = device_ms(lambda: p2p_reduce(*args, max_resid), match="p2p_",
+                                    launches=p2p_reduce.launches)
     if per_call != 1:
-        fail(f"p2p_reduce: the profiler saw {per_call} p2p_ kernels per call, expected 1")
-    plain_ms, plain_kernels = device_ms(lambda: p2p_reduce_plain(*args, max_resid))
+        fail(f"p2p_reduce: {per_call} launches per call counted on the device, expected 1")
+    plain_ms, plain_kernels, plain_whole = device_ms(lambda: p2p_reduce_plain(*args, max_resid))
     one = torch.zeros(1, device=args[0].device)
-    floor_ms, _ = device_ms(lambda: one.add_(1.0))
-    ms_8 = (device_ms(lambda: _launch(args, max_resid, False, 8), match="p2p_")[0]
+    floor_ms, _, _ = device_ms(lambda: one.add_(1.0))
+    ms_8 = (device_ms(lambda: _launch(args, max_resid, False, 8), match="p2p_",
+                      launches=p2p_reduce.launches)[0]
             if blocks == 16 else None)
     call_ms = time_ms(lambda: p2p_reduce(*args, max_resid))
     plain_call_ms = time_ms(lambda: p2p_reduce_plain(*args, max_resid))
@@ -709,7 +753,7 @@ def check_p2p(args, max_resid, report):
                   bound_by="bytes" if t_bytes >= t_ops else "operations",
                   library_ms=None, floor_ms=floor_ms, call_ms=call_ms,
                   plain_call_ms=plain_call_ms, cluster_blocks=blocks, block_threads=threads,
-                  ms_8_block_cluster=ms_8)
+                  ms_8_block_cluster=ms_8, **partial_traces(whole, plain_whole))
 
 
 def check_p2p_graph(args, max_resid):
@@ -868,12 +912,18 @@ def check_dsvt(dev, report):
         fail("dsvt_set_attn: a CUDA-graph replay differs from a direct call")
 
     part = parts[0]
-    ms, per_call = device_ms(lambda: set_attention(q, k, v, part, 8), match="dsvt_set_attn")
+    n0 = set_attention.launches
+    set_attention(q, k, v, part, 8)
+    if set_attention.launches - n0 != 1:
+        fail(f"dsvt_set_attn: a call launched {set_attention.launches - n0} kernels, expected 1")
+    ms, per_call, whole = device_ms(lambda: set_attention(q, k, v, part, 8),
+                                    match="dsvt_set_attn")
     if per_call != 1:
         fail(f"dsvt_set_attn: the profiler saw {per_call} kernels per call, expected 1")
-    plain_ms, plain_kernels = device_ms(lambda: set_attention_plain(q, k, v, part, 8), n=10)
+    plain_ms, plain_kernels, plain_whole = device_ms(
+        lambda: set_attention_plain(q, k, v, part, 8), n=10)
     one = torch.zeros(1, device=dev)
-    floor_ms, _ = device_ms(lambda: one.add_(1.0))
+    floor_ms, _, _ = device_ms(lambda: one.add_(1.0))
     call_ms = time_ms(lambda: set_attention(q, k, v, part, 8))
     plain_call_ms = time_ms(lambda: set_attention_plain(q, k, v, part, 8), n=10)
     sets, slots = int(part.n_sets), part.inds.shape[1]
@@ -894,7 +944,8 @@ def check_dsvt(dev, report):
                   pillars=pillars, sets=sets, ms=ms, plain_ms=plain_ms,
                   plain_kernels=plain_kernels, call_ms=call_ms, plain_call_ms=plain_call_ms,
                   floor_ms=floor_ms, bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+                  bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+                  **partial_traces(whole, plain_whole))
 
 
 def check_imu(cfg, st, scan, report):
@@ -912,11 +963,13 @@ def check_imu(cfg, st, scan, report):
         report["max_abs_err"] = max(report["max_abs_err"], compare_imu(args))
         if slots == IMU_CAP:
             check_imu_graph(args)
-        ms, per_call = device_ms(lambda: propagate(*args), match="imu_propagate")
+        ms, per_call, whole = device_ms(lambda: propagate(*args), match="imu_propagate",
+                                        launches=propagate.launches)
         if per_call != 1:
-            fail(f"imu_propagate: the profiler saw {per_call} kernels per call, expected 1")
+            fail(f"imu_propagate: {per_call} launches per call counted on the device, "
+                 "expected 1")
         # the plain version makes thousands of launches a call: fewer calls
-        plain_ms, plain_kernels = device_ms(lambda: propagate_plain(*args), n=10)
+        plain_ms, plain_kernels, plain_whole = device_ms(lambda: propagate_plain(*args), n=10)
         call_ms = time_ms(lambda: propagate(*args))
         plain_call_ms = time_ms(lambda: propagate_plain(*args), n=10)
         valid = int(args[3].sum())
@@ -933,8 +986,93 @@ def check_imu(cfg, st, scan, report):
             f"computes this function (library time: none)")
         report[f"m{slots}"] = dict(valid=valid, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                                    plain_kernels=plain_kernels, plain_call_ms=plain_call_ms,
+                                   **partial_traces(whole, plain_whole),
                                    bound_ms=max(t_bytes, t_ops),
                                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def gate_blocks(cfg, seed=0):
+    """HtH matrices whose pose blocks have 0 to 3 eigenvalues under
+    ``degen_thresh`` (the rest 4 to 20 times over it), in random bases."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n_small in range(4):
+        lam = np.concatenate([rng.uniform(0.0, 0.5, n_small),
+                              rng.uniform(4.0, 20.0, 6 - n_small)]) * cfg.degen_thresh
+        Q, _ = np.linalg.qr(rng.normal(size=(6, 6)))
+        H = np.eye(24) * 3.0
+        H[:6, :6] = (Q * lam) @ Q.T
+        out.append((n_small, H.astype(np.float32)))
+    return out
+
+
+def check_gate(cfg, HtH, report):
+    """Hold the gate kernel against ``_gate_degenerate_plain`` on the main
+    path's ``HtH`` and on ``gate_blocks``: E within GATE_TOL, counts equal,
+    two launches bitwise equal, a CUDA-graph replay equal to a direct call;
+    time both."""
+    import torch
+    from lsd_tpu_torch.slam.lio import _gate_degenerate, _gate_degenerate_plain
+    dev = HtH.device
+    cases = [("main path", None, HtH)] + [
+        (f"{n} under the threshold", n, torch.as_tensor(H, device=dev))
+        for n, H in gate_blocks(cfg)]
+    max_err = 0.0
+    for name, n_small, H in cases:
+        got, again = _gate_degenerate(cfg, H), _gate_degenerate(cfg, H)
+        want = _gate_degenerate_plain(cfg, H)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"lio_gate ({name}): two launches differ bitwise")
+        err = float((got[0] - want[0]).abs().max())
+        counts, want_counts = [int(got[1]), int(got[2])], [int(want[1]), int(want[2])]
+        log(f"lio_gate ({name}): |dE| {err:.3e} <= {GATE_TOL}, n_degenerate/n_weak "
+            f"{counts} (plain {want_counts}), bitwise repeatable")
+        if err > GATE_TOL or counts != want_counts or (
+                n_small is not None and counts[0] != n_small):
+            fail(f"lio_gate ({name}): kernel disagrees with _gate_degenerate_plain")
+        max_err = max(max_err, err)
+    H = HtH.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _gate_degenerate(cfg, H)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _gate_degenerate(cfg, H)
+    H[:6, :6].mul_(0.5)
+    graph.replay()
+    direct = _gate_degenerate(cfg, H)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(captured, direct)):
+        fail("lio_gate: a CUDA-graph replay differs from a direct call")
+    log("lio_gate: CUDA-graph replay equals a direct call bitwise")
+
+    ms, per_call, whole = device_ms(lambda: _gate_degenerate(cfg, HtH), match="lio_gate",
+                                    launches=_gate_degenerate.launches)
+    if per_call != 1:
+        fail(f"lio_gate: {per_call} launches per call counted on the device, expected 1")
+    plain_ms, plain_kernels, plain_whole = device_ms(
+        lambda: _gate_degenerate_plain(cfg, HtH), n=20)
+    call_ms = time_ms(lambda: _gate_degenerate(cfg, HtH))
+    plain_call_ms = time_ms(lambda: _gate_degenerate_plain(cfg, HtH), n=20)
+    # the 6x6 block read once (144 B), E and the two counts written
+    in_bytes, out_bytes = 36 * 4, 24 * 24 * 4 + 2 * 4
+    bound_ms = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    log(f"lio_gate: device time per call: kernel {ms:.5f} ms ({per_call} launch of one "
+        f"block x 64 threads), plain {plain_ms:.5f} ms ({plain_kernels} kernels, with "
+        f"its waits); call time (CUDA events, median): kernel {call_ms:.4f} ms, plain "
+        f"{plain_call_ms:.4f} ms; bound {bound_ms:.7f} ms ({in_bytes + out_bytes} B; its "
+        f"~2,000 fp64 operations a decomposition take less); no single PyTorch call "
+        f"computes this function without waiting (library time: none)")
+    report.update(name="lio_gate", route="cuda", source="lsd_tpu_torch/csrc/lio_gate.cu",
+                  replaces="jnp.linalg.eigh of lsd_tpu/slam/lio.py:_gate_degenerate "
+                           "(no Pallas kernel)",
+                  max_abs_err=max_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                  plain_kernels=plain_kernels, plain_call_ms=plain_call_ms,
+                  bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                  **partial_traces(whole, plain_whole))
 
 
 class CallTimer:
@@ -996,7 +1134,7 @@ def run_mapping(dev, card, lio_cfg, map_dir, n_scans=N_MAPPING, points=CAP):
     icp = CallTimer(mapper_mod, "icp_point_to_plane")
     syncs = {True: [], False: []}                  # by is_keyframe
     sync_sites_seen = {}
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # scans arrive as host arrays, as the sensor delivers them
@@ -1011,7 +1149,7 @@ def run_mapping(dev, card, lio_cfg, map_dir, n_scans=N_MAPPING, points=CAP):
             step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = p2p_reduce.launches
+    launches = p2p_reduce.launches.read()
     if launches != lio_cfg.max_iters * n_scans:
         fail(f"mapping: p2p_reduce launched {launches} times over {n_scans} scans, "
              f"expected max_iters x scans = {lio_cfg.max_iters * n_scans}")
@@ -1164,8 +1302,11 @@ def run_mapping_async(mapper_mod, mcfg, nav0, data, gt):
                                 nav0)
     timers = {name: CallTimer(mapper_mod, name)
               for name in ("optimize", "icp_point_to_plane", "sc_query")}
+    scan_ms = []                       # odometry's own time a scan, the waits included
     for k, d in enumerate(data):
+        t1 = time.perf_counter()
         amapper.process_scan(*d[:5], stamp_us=int(k * 1e5))
+        scan_ms.append((time.perf_counter() - t1) * 1e3)
     amapper.flush()
     dt = time.perf_counter() - t0
     for t in timers.values():
@@ -1199,11 +1340,15 @@ def run_mapping_async(mapper_mod, mcfg, nav0, data, gt):
     if not rmse < MAPPING_RMSE_LIMIT_M:
         fail(f"mapping (async): trajectory RMSE {rmse} m is not below {MAPPING_RMSE_LIMIT_M} m")
     report = dict(scans=n, keyframes=n_kf, ms_per_scan=dt / n * 1e3, rmse_m=rmse,
+                  scan_ms_p50=float(np.median(scan_ms)),
+                  scan_ms_p95=float(np.percentile(scan_ms, 95)), scan_ms_max=max(scan_ms),
                   loops=len(amapper.loops), loop_stats=amapper.loop_stats,
                   worker_errors=0, worker_pgo_solves=len(timers["optimize"].threads),
                   worker_icp_candidates=len(timers["icp_point_to_plane"].threads),
                   worker_sc_queries=len(timers["sc_query"].threads))
     log(f"mapping (async_graph, async_fetch), {n} scans: {report['ms_per_scan']:.2f} ms/scan, "
+        f"process_scan p50/p95/max {report['scan_ms_p50']:.2f}/{report['scan_ms_p95']:.2f}/"
+        f"{report['scan_ms_max']:.2f} ms (host clock, the waits on the worker's queue included), "
         f"{n_kf} keyframes and as many descriptors, {report['loops']} loops, loop_stats "
         f"{amapper.loop_stats}, RMSE {rmse:.4f} m; on the worker thread {report['worker_sc_queries']} "
         f"ScanContext queries, {report['worker_icp_candidates']} ICP verifications and "
@@ -1222,7 +1367,7 @@ def run_points(dev, card, cfg, nav0, scans, gt, n_scans=N_POINTS):
     cfg = cfg._replace(map_type="points", map_capacity=2 ** 17)
     st = lio_init(cfg, nav0)
     poses = []
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for scan in scans[:n_scans]:
@@ -1230,7 +1375,7 @@ def run_points(dev, card, cfg, nav0, scans, gt, n_scans=N_POINTS):
         poses.append(st.nav.pos)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = p2p_reduce.launches
+    launches = p2p_reduce.launches.read()
     if launches != cfg.max_iters * n_scans:
         fail(f"raw-point map: p2p_reduce launched {launches} times over {n_scans} scans, "
              f"expected max_iters x scans = {cfg.max_iters * n_scans}")
@@ -1319,7 +1464,7 @@ def run_localization(dev, card, map_dir, sim, map_data):
     reloc = CallTimer(loc, "_relocalize", host=True)
     track = CallTimer(loc_mod, "localize_track_step")
     outs, scan_ms, used, syncs, sync_sites_seen = [], [], [], {True: [], False: []}, {}
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     feed = drive_localizer(loc, drive, scans, LOC_T_START)
     for k in range(N_LOC):
         builds = len(build.spans)
@@ -1336,7 +1481,7 @@ def run_localization(dev, card, map_dir, sim, map_data):
         scan_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
         used.append(k > 0 and loc.last_step_diag["has_odom"])
-    launches = p2p_reduce.launches
+    launches = p2p_reduce.launches.read()
     for timer in (track, build, reloc):
         timer.restore()
     track_ms, build_ms, reloc_ms = track.ms(), build.ms(), reloc.ms()
@@ -1357,8 +1502,8 @@ def run_localization(dev, card, map_dir, sim, map_data):
     side_err = compare_p2p(side_args, cfg.lio.max_resid)
     # late in a long process the profiler may drop records in every trace:
     # the comparison above is the check, the device time is a reading
-    side_ms, _ = device_ms(lambda: p2p_reduce(*side_args, cfg.lio.max_resid), match="p2p_",
-                           required=False)
+    side_ms, _, _ = device_ms(lambda: p2p_reduce(*side_args, cfg.lio.max_resid),
+                              match="p2p_", required=False, launches=p2p_reduce.launches)
     side_call_ms = time_ms(lambda: p2p_reduce(*side_args, cfg.lio.max_resid))
     log(f"p2p_reduce at the side LIO's shape, N={cfg.lio.ds_capacity}: max abs error "
         f"{side_err:.3e}, device time per call {side_ms} ms, call time {side_call_ms:.4f} ms")
@@ -1405,11 +1550,11 @@ def run_localization(dev, card, map_dir, sim, map_data):
     loc2 = loc_mod.Localizer(map_dir, cfg)
     loc2.set_init_pose(hint)
     track = CallTimer(loc_mod, "localize_track_step")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     outs2, errs2, ms2 = follow(loc2, drive, scans[:N_LOC_IMU], side_lio=False)
     track.restore()
-    if p2p_reduce.launches != 0:
-        fail(f"localization (IMU prediction): p2p_reduce launched {p2p_reduce.launches} times "
+    if (launches := p2p_reduce.launches.read()) != 0:
+        fail(f"localization (IMU prediction): p2p_reduce launched {launches} times "
              "with no side LIO running")
     rmse2 = check_tracking("localization (IMU prediction)", outs2, errs2, N_LOC_IMU)
     report["imu_prediction"] = dict(
@@ -1531,7 +1676,7 @@ def run_rtkm(dev, card, sim, data, mcfg_kw):
         m.feed_ins(dict(timestamp=int(k * 1e5), latitude=float(lat), longitude=float(lon),
                         altitude=100.0 + p[2] - p0[2], pitch=0.0, roll=0.0,
                         heading=90.0 - yaw + grid_convergence(proj.lon0, float(lat), float(lon))))
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     worst = 0.0
@@ -1553,8 +1698,8 @@ def run_rtkm(dev, card, sim, data, mcfg_kw):
     if n_kf < RTK_MIN_KEYFRAMES or m.graph.num_nodes != n_kf or m.sc_ids != list(range(n_kf)):
         fail(f"rtkm: {n_kf} keyframes, {m.graph.num_nodes} graph nodes, {len(m.sc_ids)} "
              f"descriptors; expected at least {RTK_MIN_KEYFRAMES} of each, all equal")
-    if p2p_reduce.launches != 0:
-        fail(f"rtkm: p2p_reduce launched {p2p_reduce.launches} times; RTK mapping runs no LIO")
+    if (launches := p2p_reduce.launches.read()) != 0:
+        fail(f"rtkm: p2p_reduce launched {launches} times; RTK mapping runs no LIO")
     traj = m.trajectory()
     if traj.shape != (n, 4, 4) or not np.isfinite(traj).all():
         fail(f"rtkm: trajectory of shape {traj.shape} is not {n} finite poses")
@@ -1825,10 +1970,12 @@ def run_detection(dev, card, drive_frames=None):
     from lsd_tpu_torch.runtime.modules import build_detector_predict_fn, shipped_detector_weights
     from lsd_tpu_torch.tools.profile_detector import CAPACITIES, eval_scenes, mean_ap
 
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     report = dict(card=card, checkpoints={}, float32_card_vs_cpu={}, accuracy={}, drive={})
     scenes = eval_scenes()
-    for capacity, make_cfg in sorted(CAPACITIES.items()):
+    # the shipped checkpoints' capacities (DSVT-Pillar has none: phase 2b)
+    for capacity in sorted(JAX_MEAN_AP):
+        make_cfg = CAPACITIES[capacity]
         path = shipped_detector_weights(make_cfg())
         if path is None:
             fail(f"detection: no shipped checkpoint for the {capacity} capacity")
@@ -1879,9 +2026,9 @@ def run_detection(dev, card, drive_frames=None):
                 f"{ins['objects_followed']} objects followed, top speed "
                 f"{ins['top_speed_m_s']:.2f} m/s, per object {ins['per_object']}")
         torch.cuda.empty_cache()
-    report["p2p_launches"] = p2p_reduce.launches
-    if p2p_reduce.launches != 0:
-        fail(f"detection: p2p_reduce launched {p2p_reduce.launches} times; no SLAM runs here")
+    report["p2p_launches"] = p2p_reduce.launches.read()
+    if report["p2p_launches"] != 0:
+        fail(f"detection: p2p_reduce launched {report['p2p_launches']} times; no SLAM runs here")
     return report
 
 
@@ -2307,7 +2454,7 @@ def run_camera(dev, card):
     from lsd_tpu_torch.tools.profile_lio import sync_sites
     from lsd_tpu_torch.training import camera_data as cd
 
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     root = os.path.dirname(os.path.abspath(__file__))
     m3_path, tl_path = shipped_mono3d_weights(), os.path.join(root, "weights",
                                                               "yolo2d_trafficlight.msgpack")
@@ -2387,9 +2534,9 @@ def run_camera(dev, card):
 
     report["trafficlight"] = run_trafficlight(dev, tl_path)
     report["quantization"] = check_quantized(dev, m3_tree, m3_scenes, K384)
-    report["p2p_launches"] = p2p_reduce.launches
-    if p2p_reduce.launches != 0:
-        fail(f"camera: p2p_reduce launched {p2p_reduce.launches} times; no SLAM runs here")
+    report["p2p_launches"] = p2p_reduce.launches.read()
+    if report["p2p_launches"] != 0:
+        fail(f"camera: p2p_reduce launched {report['p2p_launches']} times; no SLAM runs here")
     torch.cuda.empty_cache()
     return report
 
@@ -2561,10 +2708,10 @@ def run_pipeline_mapping(dev, card, root, sim, data, nav0, direct):
     first = Stamps(p.module_manager.modules["Source"], "get_data")
     done = Stamps(eng, "_complete_scan")
     stage = Stamps(slam, "process")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     try:
         statuses = drive_pipeline("mapping", p, lambda: len(eng.odometry), n)
-        launches = p2p_reduce.launches
+        launches = p2p_reduce.launches.read()
         eng.flush()                     # the graph worker's last jobs
         if call_interface("slam.save_mapping", os.path.join(root, "maps"), "pipeline") != "ok":
             fail("pipeline (mapping): slam.save_mapping did not answer ok")
@@ -2612,7 +2759,12 @@ def run_pipeline_mapping(dev, card, root, sim, data, nav0, direct):
              gps_priors=len(eng.graph.gps), orientation_priors=len(eng.graph.orient),
              origin_lla=[float(v) for v in eng.origin_lla], bus_odometry_messages=len(odometry),
              sink_frames=len(frames), max_iters=eng.cfg.lio.max_iters,
-             ds_capacity=eng.cfg.lio.ds_capacity))
+             ds_capacity=eng.cfg.lio.ds_capacity,
+             # the stage's tail over every frame: odometry waits while the
+             # graph worker's queue is full (slam/mapper.py:_enqueue_graph_job)
+             stage_ms_p95_all_frames=float(np.percentile(stage.ms[:n], 95)),
+             stage_ms_max_all_frames=float(np.max(stage.ms[:n])),
+             dropped_jobs=eng.loop_stats.get("dropped_jobs", 0)))
     return report, map_dir
 
 
@@ -2644,10 +2796,10 @@ def run_pipeline_localization(dev, card, root, sim, map_dir, direct):
     first = Stamps(p.module_manager.modules["Source"], "get_data")
     done = Stamps(eng, "process_scan", keep=True)
     stage = Stamps(slam, "process")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     try:
         statuses = drive_pipeline("localization", p, lambda: len(done.times), n)
-        launches = p2p_reduce.launches
+        launches = p2p_reduce.launches.read()
         side_scans = eng._lio_n
         check_modules("localization", p, statuses)
     finally:
@@ -2741,10 +2893,10 @@ def run_pipeline_detection(dev, card, root, direct):
     conv = Stamps(modules, "frame_from_dict")
     first = Stamps(p.module_manager.modules["Source"], "get_data")
     done = Stamps(detect, "process")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     try:
         statuses = drive_pipeline("detection", p, lambda: len(done.times), n)
-        launches = p2p_reduce.launches
+        launches = p2p_reduce.launches.read()
         deadline = time.perf_counter() + 30
         while (sink.frames < n or len(datagrams) < n) and time.perf_counter() < deadline:
             time.sleep(0.01)
@@ -3100,7 +3252,7 @@ def run_training(dev, card):
     """Phase 11: the three trainers at full width on the card."""
     import torch
     from lsd_tpu_torch.ops.p2p import p2p_reduce
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     report = dict(card=card)
     with tempfile.TemporaryDirectory() as out_dir:
         for name, setup in training_setups().items():
@@ -3121,9 +3273,9 @@ def run_training(dev, card):
             report[name] = rep
             del tr
             torch.cuda.empty_cache()
-    report["p2p_launches"] = p2p_reduce.launches
-    if p2p_reduce.launches != 0:
-        fail(f"training: p2p_reduce launched {p2p_reduce.launches} times; no SLAM runs here")
+    report["p2p_launches"] = p2p_reduce.launches.read()
+    if report["p2p_launches"] != 0:
+        fail(f"training: p2p_reduce launched {report['p2p_launches']} times; no SLAM runs here")
     return report
 
 
@@ -3232,11 +3384,11 @@ def run_scoring_evaluate(dev):
         return st, info
 
     def run(sim, data, warmup, wheelspeed=False, **kwargs):
-        n0 = p2p_reduce.launches
+        n0 = p2p_reduce.launches.read()
         weak.clear()
         out = run_tpu_lio(sim, data, warmup, wheelspeed=wheelspeed, **kwargs)
         st = last.pop("st")
-        runs.append(dict(scans=len(data), launches=p2p_reduce.launches - n0,
+        runs.append(dict(scans=len(data), launches=p2p_reduce.launches.read() - n0,
                          finite=all(bool(torch.isfinite(x).all()) for x in (*st.nav, st.P)),
                          max_weak_dirs=int(torch.stack(weak[warmup:]).max())))
         return out
@@ -3283,7 +3435,7 @@ def loc_eval_run(map_dir, root, lio_fusion, dev):
         pose = out.get("pose")
         poses[int(stamp_us)] = None if pose is None else np.asarray(pose, float).copy()
         return out
-    n0 = p2p_reduce.launches
+    n0 = p2p_reduce.launches.read()
     Localizer.process_scan = tapped
     try:
         rep = loc_eval.run(map_dir, laps=LOC_EVAL_LAPS, radius=LOC_EVAL_RADIUS,
@@ -3292,7 +3444,7 @@ def loc_eval_run(map_dir, root, lio_fusion, dev):
                            world="fig8", progress=log, device=dev)
     finally:
         Localizer.process_scan = process_scan
-    return rep, p2p_reduce.launches - n0, poses
+    return rep, p2p_reduce.launches.read() - n0, poses
 
 
 def run_scoring_loc_eval(dev, root):
@@ -3303,10 +3455,10 @@ def run_scoring_loc_eval(dev, root):
     from lsd_tpu_torch.tools import loc_eval
     map_dir, map_root = os.path.join(root, "map"), os.path.join(root, "map_src")
     t0 = time.perf_counter()
-    n0 = p2p_reduce.launches
+    n0 = p2p_reduce.launches.read()
     built = loc_eval.build_map(map_dir, world="fig8", radius=LOC_EVAL_RADIUS, points=LOC_EVAL_POINTS,
                                out_root=map_root, progress=log, device=dev)
-    built["launches"] = p2p_reduce.launches - n0
+    built["launches"] = p2p_reduce.launches.read() - n0
     built["phase_s"] = time.perf_counter() - t0
     if built["scans"] != built["scans_total"]:
         fail(f"scoring (loc_eval map): {built['scans']} of {built['scans_total']} scans mapped")
@@ -3520,29 +3672,29 @@ def run_scoring(dev, card, mot_frames, root):
         calibration=dict(mount=CALIB_MOUNT, angle_deg=CALIB_ANGLE_DEG, height_m=CALIB_HEIGHT_M,
                          lidar_ins_heading_deg=LIDAR_INS_DEG, lidar_ins_m=LIDAR_INS_M,
                          colmap_pose=1e-5)))
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     t0 = time.perf_counter()
     report["evaluate"] = dict(rows=run_scoring_evaluate(dev), phase_s=time.perf_counter() - t0)
-    report["launches_evaluate"] = p2p_reduce.launches
+    report["launches_evaluate"] = p2p_reduce.launches.read()
     log(f"scoring (evaluate), {N_EVAL_SCANS} scans of {CAP} points a row on {card}: "
         + "; ".join(f"{r['scenario']} ATE {r['tpu_ate_m']} m, {r['tpu_ms']} ms/scan, degen "
                     f"{r['max_degen_dirs']}, weak {r['max_weak_dirs']}, {r['launches']} launches"
                     for r in report["evaluate"]["rows"]))
     os.makedirs(root, exist_ok=True)
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     loc, map_dir, map_root, fusion_poses = run_scoring_loc_eval(dev, root)
     report["loc_eval"] = loc
     report["launches_loc_eval_map"] = loc["map"]["launches"]
     report["launches_loc_eval_loc"] = loc["loc"]["launches"]
     log(f"scoring (loc_eval): map {loc['map']}; localisation {loc['loc']}; without the side "
         f"LIO {loc['loc_no_fusion']}")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     report["eval_detection"] = run_scoring_detection(dev, mot_frames)
-    report["launches_eval_detection"] = p2p_reduce.launches
+    report["launches_eval_detection"] = p2p_reduce.launches.read()
     log(f"scoring (eval_detection): {report['eval_detection']}")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     report["calibration"] = run_scoring_calibration(map_dir, map_root)
-    report["launches_calibration"] = p2p_reduce.launches
+    report["launches_calibration"] = p2p_reduce.launches.read()
     log(f"scoring (calibration): {report['calibration']}")
     for key in ("launches_eval_detection", "launches_calibration"):
         if report[key] != 0:
@@ -3893,7 +4045,7 @@ def online_phase(dev, card, keep_dir):
             done = Stamps(eng, "_complete_scan", keep=True)
             stage = Stamps(slam, "process")
             time.sleep(1.0)                                 # recv binds its socket
-            p2p_reduce.launches = 0
+            p2p_reduce.launches.reset()
             sent = dict(lidar=0, ins=0)
             t0 = time.perf_counter() + 0.05
             sender = threading.Thread(target=send_traffic, name="OnlineSender",
@@ -3914,7 +4066,7 @@ def online_phase(dev, card, keep_dir):
                 time.sleep(0.05)
             eng.finish_pending()
             eng.flush()
-            launches = p2p_reduce.launches
+            launches = p2p_reduce.launches.read()
             status = json.loads(http(base, "/v1/status", {}))
             rpc = json.loads(http(base, "/api", {"method": "slam.get_pose", "id": 3}))
             meta = json.loads(http(base, "/v1/message-meta"))
@@ -4088,7 +4240,7 @@ def run_sharded_map_world1(mesh, card, cfg, nav0, scans, gt):
     for name in ("sharded", "lio_step"):
         st = sharded_lio_init(cfg, mesh, nav0) if name == "sharded" else lio_init(cfg, nav0)
         poses, prev = [], None
-        p2p_reduce.launches = 0
+        p2p_reduce.launches.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for scan in scans:
@@ -4101,7 +4253,7 @@ def run_sharded_map_world1(mesh, card, cfg, nav0, scans, gt):
             poses.append(pose)
         torch.cuda.synchronize()
         runs[name] = dict(ms=(time.perf_counter() - t0) / len(scans) * 1e3,
-                          launches=p2p_reduce.launches, st=st, prev=prev,
+                          launches=p2p_reduce.launches.read(), st=st, prev=prev,
                           poses=torch.stack(poses).cpu().numpy().astype(float))
     sh, one = runs["sharded"], runs["lio_step"]
     if sh["launches"] != cfg.max_iters * len(scans):
@@ -4137,10 +4289,10 @@ def check_sharded_update(mesh, cfg, st, scan):
     from lsd_tpu_torch.parallel import sharded_lio_update
     from lsd_tpu_torch.slam.lio import lio_step, scan_front
     front = scan_front(cfg, st, *scan)
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     nav = sharded_lio_update(cfg, mesh, front.nav_prop, front.P_prop, st.map, front.ds_pts,
                              front.ds_mask)
-    launches = p2p_reduce.launches
+    launches = p2p_reduce.launches.read()
     st2, _ = lio_step(cfg, st, *scan)
     dp = float((nav.pos - st2.nav.pos).norm())
     dq = abs(float(nav.quat @ st2.nav.quat))
@@ -4184,7 +4336,7 @@ def check_sharded_pgo(mesh, map_dir):
     from lsd_tpu_torch.slam.posegraph import PgoConfig, optimize
     graph, n_nodes, n_edges = graph_from_map(map_dir, mesh.device)
     cfg = PgoConfig(outer_iters=6, cg_iters=120)
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     out, ms, infos = {}, {}, {}
 
     def schur():
@@ -4208,7 +4360,7 @@ def check_sharded_pgo(mesh, map_dir):
     moved = float(np.abs(pos["optimize"] - start).max())
     report = dict(nodes=n_nodes, edges=n_edges, outer_iters=cfg.outer_iters,
                   cg_iters=cfg.cg_iters, ms_per_round=ms, max_gap_sharded_m=gap_sh,
-                  max_gap_schur_m=gap_sc, moved_m=moved, p2p_launches=p2p_reduce.launches,
+                  max_gap_schur_m=gap_sc, moved_m=moved, p2p_launches=p2p_reduce.launches.read(),
                   schur_info={k: (float(v) if torch.is_tensor(v) else v)
                               for k, v in infos["schur"].items()})
     log(f"multi-device (c), PGO on phase 4's graph ({n_nodes} nodes, {n_edges} edges) at "
@@ -4238,12 +4390,12 @@ def check_merge(mesh, card, map_a, map_b, root, cpu_merge):
     from lsd_tpu_torch.slam.map_io import load_map
     from lsd_tpu_torch.tools.campaign import merge_distributed
     card_dir = os.path.join(root, "merged_card")
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     t0 = time.perf_counter()
     m = merge_distributed(mesh, map_a, map_b, card_dir, progress=log)
     wall = time.perf_counter() - t0
     rep = {k: v for k, v in m.items() if k not in ("builder", "info")}
-    rep.update(wall_s=wall, p2p_launches=p2p_reduce.launches)
+    rep.update(wall_s=wall, p2p_launches=p2p_reduce.launches.read())
     if rep["cross_edges"] < 1 or rep["single_host_fallback"]:
         fail(f"multi-device (d): the card's merge found {rep['cross_edges']} cross edges, "
              f"single_host_fallback {rep['single_host_fallback']}")
@@ -4289,14 +4441,14 @@ def sharded_map_rank_on_card(mesh, cfg, scans, nav0):
     step = make_sharded_lio_step(cfg, mesh)
     st = sharded_lio_init(cfg, mesh, nav)
     poses = []
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     t0 = time.perf_counter()
     for scan in scans:
         st, pose = step(st, *[torch.as_tensor(a, device=dev) for a in scan])
         poses.append(pose)
     torch.cuda.synchronize()
     return dict(poses=torch.stack(poses).cpu().numpy(), capacity=st.map.capacity,
-                occupied=int((st.map.keys >= 0).sum()), launches=p2p_reduce.launches,
+                occupied=int((st.map.keys >= 0).sum()), launches=p2p_reduce.launches.read(),
                 device=str(st.P.device), ms_per_scan=(time.perf_counter() - t0) / len(scans) * 1e3)
 
 
@@ -4342,7 +4494,7 @@ def check_trainer_mesh(mesh, dev):
     from lsd_tpu_torch.training.trainer import Trainer
     setup = training_setups()["detector"]
     batch = next(setup["data"](1).batches(1))
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     runs = {}
     for key in ("one", "mesh"):
         tr = setup["make"](dev, 0, 1e-3, 1, 1000, torch.float32)
@@ -4374,7 +4526,7 @@ def check_trainer_mesh(mesh, dev):
                update_min_cos=min(c for c, _ in own.values()),
                update_max_gap=max(g for _, g in own.values()),
                update_worst_leaf=max(own, key=lambda n: own[n][1]),
-               step_finite=finite, p2p_launches=p2p_reduce.launches)
+               step_finite=finite, p2p_launches=p2p_reduce.launches.read())
     log(f"multi-device (f), Trainer(mesh) at world size 1 against the one-card Trainer: {rep}")
     if not (abs(lm - l1) <= 1e-4 * abs(l1) and rep["grad_max_share"] <= TRAIN_GRAD_RTOL
             and rep["update_min_cos"] >= MD_UPDATE_COS and rep["update_max_gap"] <= MD_UPDATE_GAP
@@ -4446,12 +4598,12 @@ def run_format_chains(dev, root):
                             min_frames=FMT_MIN_FRAMES * N_FMT_SCANS))
     for name, rec in recs.items():
         timer = CallTimer(lio_mod, "p2p_reduce")
-        p2p_reduce.launches = 0
+        p2p_reduce.launches.reset()
         try:
             r = eval_formats.replay_and_score(rec, sim, gts, gt_ts_us=gt_ts, device=dev)
         finally:
             timer.restore()
-        r.update(launches=p2p_reduce.launches,
+        r.update(launches=p2p_reduce.launches.read(),
                  ms_per_frame=r["busy_s"] / max(r["integrated"], 1) * 1e3)
         report[name] = r
         log(f"tools (eval_formats, {name}): {r}")
@@ -4526,11 +4678,11 @@ def run_profile_replay(dev, rec_bag):
     with a trace in a temporary directory."""
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     from lsd_tpu_torch.tools.profile import profile_lio_replay
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     with tempfile.TemporaryDirectory() as trace:
         rep = profile_lio_replay(rec_bag, trace, max_frames=N_PROFILE_FRAMES, device=dev)
         rep["trace_bytes"] = os.path.getsize(os.path.join(trace, "trace.json"))
-    rep["launches"] = p2p_reduce.launches
+    rep["launches"] = p2p_reduce.launches.read()
     log(f"tools (profile): {rep}")
     if rep["frames"] != N_PROFILE_FRAMES or rep["launches"] != 4 * rep["frames"]:
         fail(f"tools (profile): {rep['frames']} frames, p2p_reduce launched {rep['launches']} "
@@ -4558,14 +4710,14 @@ def run_loc_diag(dev, scoring):
     frames of 12b's drive, on 12b's map, against 12b's own run."""
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     from lsd_tpu_torch.tools import loc_diag
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     was = deterministic()           # as 12b's run with the side LIO
     try:
         rows, summ = loc_diag.run(scoring["map_dir"], scoring["loc_rec"], lio_fusion=True,
                                   max_frames=N_LOC_DIAG, progress=log, device=dev)
     finally:
         deterministic(was)
-    launches = p2p_reduce.launches
+    launches = p2p_reduce.launches.read()
     rx, ry, scored = loc_diag_rmse(scoring["loc_rec"], scoring["fusion_poses"], N_LOC_DIAG)
     report = dict(summary=summ, launches=launches, phase12b=dict(rmse_x=rx, rmse_y=ry,
                                                                  scored=scored))
@@ -4589,11 +4741,11 @@ def run_campaign_diag(dev, map_dir):
     from lsd_tpu_torch.ops.p2p import p2p_reduce
     from lsd_tpu_torch.tools import campaign_diag
     kw = dict(laps=LOC_EVAL_MAP_LAPS, radius=LOC_EVAL_RADIUS, speed=5.0, points=LOC_EVAL_POINTS)
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     t0 = time.perf_counter()
     card = campaign_diag.diagnose(map_dir, device=dev, **kw)
     card_s = time.perf_counter() - t0
-    launches = p2p_reduce.launches
+    launches = p2p_reduce.launches.read()
     cpu = campaign_diag.diagnose(map_dir, device="cpu", **kw)
     tags = [k for k, v in cpu.items() if isinstance(v, dict) and "ate_after_m" in v]
     worst = max(abs(card[t][k] - cpu[t][k]) for t in tags for k in ("ate_before_m", "ate_after_m"))
@@ -4616,9 +4768,9 @@ def run_tools(dev, card, scoring):
 
     def part(name, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        p2p_reduce.launches = 0
+        p2p_reduce.launches.reset()
         report[name] = out = fn(*args, **kwargs)
-        report["launches"][name] = p2p_reduce.launches
+        report["launches"][name] = p2p_reduce.launches.read()
         report["seconds"][name] = time.perf_counter() - t0
         return out
 
@@ -4726,8 +4878,9 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from lsd_tpu_torch.ops.p2p import p2p_reduce
+        from lsd_tpu_torch.slam import lio_graph
         from lsd_tpu_torch.slam.imu import propagate
-        from lsd_tpu_torch.slam.lio import lio_step
+        from lsd_tpu_torch.slam.lio import _gate_degenerate, _lio_step_eager, lio_step
         from lsd_tpu_torch.utils import cuda_build
         from lsd_tpu_torch.utils.metrics import ate_rmse
         from lsd_tpu_torch.utils.precision import set_slam_precision
@@ -4748,7 +4901,7 @@ def main() -> None:
     set_slam_precision()
 
     # ---- 1. build -------------------------------------------------------
-    for name in ("p2p_reduce", "imu_propagate", "dsvt_set_attn"):
+    for name in ("p2p_reduce", "imu_propagate", "lio_gate", "dsvt_set_attn"):
         t0 = time.perf_counter()
         lib = cuda_build.build(name)
         log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
@@ -4773,6 +4926,9 @@ def main() -> None:
     check_p2p(p2p_inputs(cfg, st, scans[N_WARM]), cfg.max_resid, p2p_report)
     imu_report = {}
     check_imu(cfg, st, scans[N_WARM], imu_report)
+    gate_report = {}
+    p2p_args = p2p_inputs(cfg, st, scans[N_WARM])
+    check_gate(cfg, p2p_reduce(*p2p_args, cfg.max_resid)[0], gate_report)
     dsvt_report = {}
     check_dsvt(dev, dsvt_report)
     from lsd_tpu_torch.tools.profile_lio import sync_sites
@@ -4781,8 +4937,11 @@ def main() -> None:
     log(f"host syncs in one lio_step: {syncs}; by site {sites}")
 
     # ---- 3. the main path ------------------------------------------------
-    p2p_reduce.launches = 0
-    propagate.launches = 0
+    st_start = st
+    p2p_reduce.launches.reset()
+    propagate.launches.reset()
+    _gate_degenerate.launches.reset()
+    graph_counts = dict(lio_graph.counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for scan in scans[N_WARM:]:
@@ -4790,14 +4949,41 @@ def main() -> None:
         poses.append(st.nav.pos)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = p2p_reduce.launches
+    graph_counts = {k: lio_graph.counters[k] - graph_counts[k] for k in graph_counts}
+    # counted where the kernels run: the replayed graphs' launches
+    graph_launches = (p2p_reduce.launches.read(), propagate.launches.read(),
+                      _gate_degenerate.launches.read())
+    launches, imu_launches, gate_launches = graph_launches
     if launches != cfg.max_iters * N_BENCH:
         fail(f"p2p_reduce launched {launches} times over {N_BENCH} scans, "
              f"expected max_iters x scans = {cfg.max_iters * N_BENCH}")
-    if propagate.launches != N_BENCH:
-        fail(f"imu_propagate launched {propagate.launches} times over {N_BENCH} scans, "
+    if imu_launches != N_BENCH:
+        fail(f"imu_propagate launched {imu_launches} times over {N_BENCH} scans, "
              f"expected one a scan")
-    imu_report["launches"] = propagate.launches
+    if gate_launches != cfg.max_iters * N_BENCH:
+        fail(f"lio_gate launched {gate_launches} times over {N_BENCH} scans, "
+             f"expected max_iters x scans = {cfg.max_iters * N_BENCH}")
+    if graph_counts["replays"] != N_BENCH or graph_counts["eager"]:
+        fail(f"the LIO step's graphs: {graph_counts} over {N_BENCH} scans, expected a "
+             f"replay a scan and no eager step")
+    imu_report["launches"] = imu_launches
+    gate_report["launches"] = gate_launches
+    # the same scans from the same state through the eager body
+    st_e = st_start
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scan in scans[N_WARM:]:
+        st_e, info_e = _lio_step_eager(cfg, st_e, *scan)
+    torch.cuda.synchronize()
+    dt_eager = time.perf_counter() - t0
+    gap_m = float((st_e.nav.pos - st.nav.pos).norm())
+    log(f"lio_step, {N_BENCH} scans from one state: graphs {N_BENCH / dt:.2f} scans/s "
+        f"({dt / N_BENCH * 1e3:.3f} ms/scan), eager body {N_BENCH / dt_eager:.2f} scans/s "
+        f"({dt_eager / N_BENCH * 1e3:.3f} ms/scan), final positions "
+        f"{gap_m:.2e} m apart; graph runner counters {dict(lio_graph.counters)}")
+    if not gap_m < 1e-3:
+        fail(f"the eager body ends {gap_m} m from the graphs over the same scans")
+    del st_e, info_e
     finite = all(bool(torch.isfinite(x).all()) for x in (*st.nav, st.P))
     if not finite:
         fail("the filter state is not finite after the main path")
@@ -4809,15 +4995,18 @@ def main() -> None:
         fail(f"ATE {ate} m is not below {ATE_LIMIT_M} m")
     log(f"lio_step, {N_BENCH} scans of {CAP} points on {card}: "
         f"{N_BENCH / dt:.2f} scans/s, {dt / N_BENCH * 1e3:.3f} ms/scan, "
-        f"ATE {ate:.5f} m, num_valid {int(info['num_valid'])}, "
-        f"p2p_reduce launches {launches}, imu_propagate launches {propagate.launches}")
+        f"ATE {ate:.5f} m, num_valid {int(info['num_valid'])}, launches (p2p_reduce, "
+        f"imu_propagate, lio_gate) {graph_launches}")
 
     phase_done("1-3 build and lio_step")
     lio_report = {"card": card, "scans": N_BENCH, "points_per_scan": CAP,
                   "scans_per_s": N_BENCH / dt, "ms_per_scan": dt / N_BENCH * 1e3,
-                  "ate_m": ate, "host_syncs_per_scan": syncs}
+                  "eager_scans_per_s": N_BENCH / dt_eager,
+                  "eager_ms_per_scan": dt_eager / N_BENCH * 1e3,
+                  "ate_m": ate, "host_syncs_per_scan": syncs,
+                  "graph_counters": dict(lio_graph.counters)}
     p2p_report["launches"] = launches
-    del st
+    del st, st_start
 
     # ---- 4. the mapping path, 5. the raw-point LIO path --------------------
     with tempfile.TemporaryDirectory() as map_dir:
@@ -4919,7 +5108,7 @@ def main() -> None:
     print(json.dumps({"multi_device": md_report}))
     print(json.dumps({"tools": tools_report}))
     print(card)
-    print(json.dumps({"kernels": [p2p_report, imu_report, dsvt_report]}))
+    print(json.dumps({"kernels": [p2p_report, imu_report, gate_report, dsvt_report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,11 +30,13 @@
 //     F by rows without bank conflicts.
 //   - P is read through its strides: the LIO step's covariance is
 //     column-major, and a copy would cost a launch of its own.
-// No atomics and a fixed order of every sum: the result is bitwise
+// No atomics in the sums and a fixed order of every sum: the result is bitwise
 // repeatable, and the launch (no allocation, no sync) can be captured in
 // a CUDA graph.  fp32 throughout, built with -fmad=false like every kernel
 // of the package.
 #include <cuda_runtime.h>
+
+#include "launch_count.cuh"
 
 namespace {
 
@@ -136,6 +138,7 @@ imu_propagate_kernel(const float* __restrict__ quat0, const float* __restrict__ 
   __shared__ float sF[kErr * kRow];                   // F
   __shared__ float sImu[kMaxSlots * kCols];
   __shared__ unsigned char sMask[kMaxSlots];
+  count_launch();
   const int tid = threadIdx.x;
   const int i = tid / kErr, j = tid % kErr;
 
@@ -280,6 +283,13 @@ int imu_propagate_launch(const float* quat, const float* pos, const float* vel,
   err = cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);
+}
+
+// The launches of this library's kernel on `device` since the last reset
+// (csrc/launch_count.cuh); zeroes them when reset != 0.  Waits for the
+// device.  Returns 0, else the CUDA error code.
+int imu_propagate_launch_count(int device, int reset, unsigned long long* count) {
+  return read_launch_count(device, reset, count);
 }
 
 }  // extern "C"

@@ -46,6 +46,8 @@
 
 #include <mutex>
 
+#include "launch_count.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -161,6 +163,7 @@ p2p_reduce_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   // announce that this block runs: no block writes into rank 0's shared
   // memory before rank 0 has started
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  count_launch();
   const int tid = threadIdx.x;
   const unsigned rank = cg::this_cluster().block_rank();
 
@@ -407,6 +410,13 @@ int p2p_reduce_launch(const float* pts, const float* nrm, const float* dpl,
 int p2p_reduce_shape(int device, int* blocks, int* threads) {
   *threads = kThreads;
   return on_device(device, [=] { return chosen_cluster(device, blocks); });
+}
+
+// The launches of this library's kernel on `device` since the last reset
+// (csrc/launch_count.cuh); zeroes them when reset != 0.  Waits for the
+// device.  Returns 0, else the CUDA error code.
+int p2p_reduce_launch_count(int device, int reset, unsigned long long* count) {
+  return read_launch_count(device, reset, count);
 }
 
 }  // extern "C"

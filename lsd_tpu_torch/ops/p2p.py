@@ -184,9 +184,8 @@ def p2p_reduce(pts_l: torch.Tensor, normals: torch.Tensor, d: torch.Tensor,
     if dev_type != "cuda":
         raise ValueError(f"p2p_reduce: unsupported device {pts_l.device}")
     out = _launch(ts, max_resid, est_extrinsic)
-    p2p_reduce.launches += 1
     HtH, Htr, stats = out.split_with_sizes((24 * 24, 24, 3))
     return HtH.view(24, 24), Htr, stats
 
 
-p2p_reduce.launches = 0   # kernel launches since the last reset
+p2p_reduce.launches = cuda_build.LaunchCount("p2p_reduce")   # counted on the device

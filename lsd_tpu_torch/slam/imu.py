@@ -175,7 +175,6 @@ def propagate(state: NavState, P: torch.Tensor, imu: torch.Tensor, imu_mask: tor
         torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"propagate: kernel launch failed with CUDA error {err}")
-    propagate.launches += 1
     P_end, quat, pos, vel, tq, tp, tv = out.split_with_sizes(
         (ERR_DIM * ERR_DIM, 4, 3, 3, 4 * m, 3 * m, 3 * m))
     track = dict(t=imu[:, 0], quat=tq.view(m, 4), pos=tp.view(m, 3), vel=tv.view(m, 3),
@@ -183,7 +182,7 @@ def propagate(state: NavState, P: torch.Tensor, imu: torch.Tensor, imu_mask: tor
     return (state._replace(quat=quat, pos=pos, vel=vel), P_end.view(ERR_DIM, ERR_DIM), track)
 
 
-propagate.launches = 0   # kernel launches since the last reset
+propagate.launches = cuda_build.LaunchCount("imu_propagate")   # counted on the device
 
 
 def undistort(points: torch.Tensor, stamps: torch.Tensor, mask: torch.Tensor,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import queue as _queue
 import threading
+import time
 import traceback
 from typing import Dict, List, Optional, Tuple
 
@@ -35,6 +36,10 @@ from .map_io import save_map
 from .posegraph import PgoConfig, optimize
 from .registration import icp_point_to_plane, pad_pow2
 from .scancontext import make_descriptor, sc_db_add, sc_db_create, sc_query
+
+
+# a graph job running this long counts as wedged (see Mapper._enqueue_graph_job)
+WEDGED_S = 30.0
 
 
 def _kf_downsample(pts_und, mask, voxel: float, cap: int):
@@ -183,6 +188,7 @@ class Mapper:
         # goes on to the next keyframe, and a caller that must know whether
         # the graph work was done reads this after flush()
         self.worker_errors: List[BaseException] = []
+        self._job_since: Optional[float] = None   # when the worker's job began
         if cfg.async_graph:
             self._worker_q = _queue.Queue(maxsize=8)
             self._worker = threading.Thread(target=self._graph_worker,
@@ -341,29 +347,39 @@ class Mapper:
                 self._add_floor_prior(kid, cloud)
 
         if self._worker_q is not None:
-            # graph work off the odometry path.  A wedged worker must NOT
-            # stall odometry indefinitely: when the bounded queue
-            # stays full past a short timeout, drop the OLDEST pending job
-            # (its keyframe keeps node + odometry edge; only its
-            # descriptor/loop chance is lost) and coalesce in the new one.
-            job = (kid, desc, pts4, mask)
-            try:
-                self._worker_q.put(job, timeout=2.0)
-            except _queue.Full:
-                try:
-                    self._worker_q.get_nowait()
-                    self._worker_q.task_done()
-                    self.loop_stats["dropped_jobs"] = \
-                        self.loop_stats.get("dropped_jobs", 0) + 1
-                except _queue.Empty:
-                    pass
-                try:
-                    self._worker_q.put_nowait(job)
-                except _queue.Full:      # worker still wedged: shed
-                    self.loop_stats["dropped_jobs"] = \
-                        self.loop_stats.get("dropped_jobs", 0) + 1
+            self._enqueue_graph_job((kid, desc, pts4, mask))
             return None
         return self._kf_graph_work(kid, desc, pts4, mask)
+
+    def _enqueue_graph_job(self, job) -> None:
+        """Graph work off the odometry path.  A wedged worker must NOT stall
+        odometry indefinitely: when the bounded queue stays full past a
+        short timeout and the worker's job has run for ``WEDGED_S``, drop
+        the OLDEST pending job (its keyframe keeps node + odometry edge;
+        only its descriptor/loop chance is lost) and coalesce in the new
+        one.  A worker on a shorter job is only slower than the scans (a
+        replay faster than the sensor): odometry waits for it."""
+        while True:
+            try:
+                self._worker_q.put(job, timeout=2.0)
+                return
+            except _queue.Full:
+                since = self._job_since
+                if not (self._worker.is_alive() and
+                        (since is None or time.monotonic() - since < WEDGED_S)):
+                    break
+        try:
+            self._worker_q.get_nowait()
+            self._worker_q.task_done()
+            self.loop_stats["dropped_jobs"] = \
+                self.loop_stats.get("dropped_jobs", 0) + 1
+        except _queue.Empty:
+            pass
+        try:
+            self._worker_q.put_nowait(job)
+        except _queue.Full:      # worker still wedged: shed
+            self.loop_stats["dropped_jobs"] = \
+                self.loop_stats.get("dropped_jobs", 0) + 1
 
     # ------------------------------------------------------------------
     def _kf_graph_work(self, kid, desc, pts4, mask):
@@ -390,12 +406,14 @@ class Mapper:
             if job is None:
                 self._worker_q.task_done()
                 return
+            self._job_since = time.monotonic()
             try:
                 self._kf_graph_work(*job)
             except Exception as exc:
                 self.worker_errors.append(exc)
                 traceback.print_exc()
             finally:
+                self._job_since = None
                 self._worker_q.task_done()
 
     def flush(self) -> None:

@@ -78,7 +78,7 @@ def bench(scans: int = 100, points: int = 2 ** 15, warm: int = 5, n_rep: int = 1
     per_call = dict(b1_ms=time_ms(b1, dev, n=n_rep), reference_route_ms=time_ms(ref, dev, n=n_rep),
                     plain_ms=time_ms(plain, dev, n=n_rep))
 
-    launches0 = p2p_reduce.launches
+    launches0 = p2p_reduce.launches.read()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -92,7 +92,7 @@ def bench(scans: int = 100, points: int = 2 ** 15, warm: int = 5, n_rep: int = 1
         n_points=int(args[0].shape[0]), n_valid=int(stats[0]),
         per_call=per_call, routes_gap=gap,
         lio_step=dict(scans=scans, ms_per_scan=step_ms,
-                      p2p_launches=p2p_reduce.launches - launches0,
+                      p2p_launches=p2p_reduce.launches.read() - launches0,
                       finite=bool(np.isfinite(st.nav.pos.cpu().numpy()).all())))
 
 

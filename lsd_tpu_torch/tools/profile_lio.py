@@ -13,7 +13,10 @@ Runs ``lio_step`` at ``bench.py``'s size (32,768-point ``CircleSim`` scans,
   not overlap) and its idle share;
 - each ``lio_step/*`` span's host ms and kernel launches per scan;
 - the kernels and the host-side operators that take the most time;
-- the host syncs of one scan, by the source line that caused them.
+- the host syncs of one scan, by the source line that caused them;
+- the graph runner's counters (``slam/lio_graph.py``: captures, replays,
+  eager steps, trims): the warm-up's first scan is eager, its second
+  captures, every traced scan replays.
 
 It needs a card; it has no CPU path.
 """
@@ -34,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..geometry import so3
 from ..sim import CircleSim, SimConfig
+from ..slam import lio_graph
 from ..slam.lio import LioConfig, lio_init, lio_step
 from ..slam.mapper import MapperConfig
 from ..slam.state import init_state
@@ -227,7 +231,8 @@ def main(argv=None) -> dict:
 
     report = dict(card=_card(), scans=n, points_per_scan=cap,
                   **trace_report(prof, n, wall, (SPAN,)),
-                  host_syncs_per_scan=sum(syncs.values()), host_sync_sites=syncs)
+                  host_syncs_per_scan=sum(syncs.values()), host_sync_sites=syncs,
+                  graph_counters=dict(lio_graph.counters))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "profile_lio.json").write_text(json.dumps(report, indent=1))

@@ -214,8 +214,8 @@ def profile_lio_phases(cfg, st, P, S, M, I, IM, n_rep: int = 30) -> Dict[str, fl
     state's device (``time_ms``), from the building blocks ``lio_step``
     composes (``slam/lio.py``).  The "iterate" phase is one iteration of the
     port's route: the fused reduction B1 (``p2p_reduce``) and the
-    degeneracy gate (``_gate_degenerate``, whose eigen-decompositions sync
-    the host), not the reference's ``_measurement_system`` matmuls."""
+    degeneracy gate (``_gate_degenerate``, one launch of ``csrc/lio_gate.cu``
+    on the card), not the reference's ``_measurement_system`` matmuls."""
     from ..ops.p2p import p2p_reduce
     from ..ops.surfel import surfel_insert
     from ..ops.voxelize import voxel_downsample
@@ -276,6 +276,7 @@ def report(device: DeviceLike = None, points: int = 2 ** 15, n_rep: int = 30) ->
     the CPU): the step from the state after 10 scans, on the 11th, ``n_rep``
     times."""
     from ..slam import LioConfig, lio_init, lio_step
+    from ..slam import lio as L
     from ..utils.device import to_device
 
     dev = resolve_device(device)
@@ -292,7 +293,8 @@ def report(device: DeviceLike = None, points: int = 2 ** 15, n_rep: int = 30) ->
     lio_ms = time_ms(lambda: lio_step(cfg, st, *scan), dev, n=n_rep)
     phases = profile_lio_phases(cfg, st, *scan, n_rep=n_rep)
     model = lio_traffic_model(cfg, points)
-    lio_flops = flop_count(lambda: lio_step(cfg, st, *scan))
+    # counted on the eager body: a graph's replay dispatches no operator
+    lio_flops = flop_count(lambda: L._lio_step_eager(cfg, st, *scan))
     rows = [stage_report("lio_step (full)", lio_ms, lio_flops,
                          model["total"], peaks,
                          note="phases: " + ", ".join(

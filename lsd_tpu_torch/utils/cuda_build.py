@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``lsd_tpu_torch/_build/`` (listed in
-``.gitignore``), in a directory keyed by a hash of the source and the flags,
-and loaded with ``ctypes``.  Nothing is built when a module is imported.
+``.gitignore``), in a directory keyed by a hash of the source, the headers of
+``csrc`` and the flags, and loaded with ``ctypes``.  Nothing is built when a module is imported.
 The first build may happen on any thread (a pipeline module's, a mapper's
 graph worker): ``load`` lets one thread of a process build and load a
 library while the others wait for it.
@@ -41,8 +41,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built for its current source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` is built for its current source, the
+    current headers of ``csrc`` and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
 
@@ -69,6 +70,7 @@ def build(name: str) -> Path:
 
 
 _LOAD_LOCK = threading.Lock()
+_loaded = set()          # the names this process has loaded
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -80,4 +82,42 @@ def load(name: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _load(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name)))
+    lib = ctypes.CDLL(str(build(name)))
+    _loaded.add(name)
+    return lib
+
+
+class LaunchCount:
+    """The launches of the kernel of ``csrc/<name>.cu``, counted where it
+    runs: its first thread adds one to a counter in device memory
+    (``csrc/launch_count.cuh``), so a launch captured in a CUDA graph counts
+    at every replay and not at the capture.  ``read`` and ``reset`` wait
+    for the device; a library this process has not loaded has launched
+    nothing, and is neither built nor loaded to say so."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def read(self, device=None, reset: bool = False) -> int:
+        """The launches on ``device`` (the current one by default) since
+        the last reset; zeroes them after when ``reset``."""
+        if self.name not in _loaded:
+            return 0
+        import torch
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name}: launches are counted on CUDA devices, not {dev}")
+        fn = getattr(load(self.name), f"{self.name}_launch_count")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
+        count = ctypes.c_ulonglong(0)
+        err = fn(torch.cuda.current_device() if dev.index is None else dev.index,
+                 1 if reset else 0, ctypes.byref(count))
+        if err != 0:
+            raise RuntimeError(f"{self.name}: reading the launch count failed with CUDA "
+                               f"error {err}")
+        return count.value
+
+    def reset(self, device=None) -> None:
+        """Zero the launches on ``device`` (the current one by default)."""
+        self.read(device, reset=True)

@@ -24,3 +24,26 @@ def test_build_without_nvcc_raises_and_leaves_nothing(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build("p2p_reduce")
     assert not (tmp_path / "build").exists()
+
+
+def test_library_path_is_keyed_by_the_headers(tmp_path, monkeypatch):
+    """A library is built anew when a header of ``csrc`` changes, such as
+    ``launch_count.cuh``, which every kernel includes."""
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    (tmp_path / "p2p_reduce.cu").write_text('#include "launch_count.cuh"')
+    paths = set()
+    for body in ("int a;", "int b;"):
+        (tmp_path / "launch_count.cuh").write_text(body)
+        paths.add(cuda_build.library_path("p2p_reduce"))
+    assert len(paths) == 2
+
+
+def test_launch_count_of_a_library_never_loaded_is_zero(monkeypatch):
+    """A kernel whose library this process has not loaded has launched
+    nothing: its count reads 0 and resets without building or loading it."""
+    monkeypatch.setattr(cuda_build, "_loaded", set())
+    monkeypatch.setattr(cuda_build, "build", lambda name: pytest.fail(f"built {name}"))
+    count = cuda_build.LaunchCount("p2p_reduce")
+    assert count.read() == 0
+    count.reset()
+    assert count.read("cuda:3") == 0

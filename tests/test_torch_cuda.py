@@ -27,6 +27,17 @@ benchmark's size with the kernel follow the same scans through
 ``port_bench/limits/lio-replay.json``: the limits that decide the
 benchmark's ``correct``.
 
+The LIO step as CUDA graphs (``slam/lio_graph.py``): 40 bench-size scans
+through the graphs follow the eager body within a tenth of those limits, on
+either map, re-searching planes every iteration and trimming the map (under
+deterministic algorithms exactly; the surfel map also with the default
+kernels); a returned state is never overwritten, the state passed in never
+written; a scan after warm-up is at most 100 launches and 4 host syncs, one
+capture a key; a capture succeeds while another thread uses the card.  The
+gate kernel (``csrc/lio_gate.cu``) against ``_gate_degenerate_plain`` with
+0 to 3 pose eigenvalues under the threshold: E within 1e-5, counts equal;
+no host sync; a CUDA-graph replay equals a direct call.
+
 The mapping path's PyTorch ops run on the card as on the CPU:
 ``hashmap_insert`` gives the same integers and points (integer scatter-min
 and scatter-add are order-free), ``optimize`` and ``icp_point_to_plane`` the
@@ -147,10 +158,10 @@ def test_p2p_kernel_matches_plain(cuda, n, est_ext, cluster):
         run = lambda: p2p._launch(args, 1.0, est_ext, cluster).split_with_sizes((576, 24, 3))
     else:
         run = lambda: p2p.p2p_reduce(*args, 1.0, est_extrinsic=est_ext)
-    before = p2p.p2p_reduce.launches
+    before = p2p.p2p_reduce.launches.read()
     out = run()
     again = run()
-    assert p2p.p2p_reduce.launches == before + (0 if cluster else 2)
+    assert p2p.p2p_reduce.launches.read() == before + 2
     ref = p2p.p2p_reduce_plain(*args, 1.0, est_extrinsic=est_ext)
     torch.cuda.synchronize()
     for a, b in zip(out, again):
@@ -292,10 +303,10 @@ def _imu_outputs(res):
 def test_imu_kernel_matches_plain(cuda, layout):
     from lsd_tpu_torch.slam.imu import propagate, propagate_plain
     args = _imu_case(layout, cuda)
-    before = propagate.launches
+    before = propagate.launches.read()
     out = _imu_outputs(propagate(*args))
     again = _imu_outputs(propagate(*args))
-    assert propagate.launches == before + 2
+    assert propagate.launches.read() == before + 2
     ref = _imu_outputs(propagate_plain(*args))
     torch.cuda.synchronize()
     for a, b in zip(out, again):
@@ -321,10 +332,10 @@ def test_imu_kernel_is_one_launch_per_call_and_makes_no_sync(cuda):
     from lsd_tpu_torch.tools.profile_lio import sync_sites
     args = _imu_case("P_column_major", cuda)         # as the LIO step hands it over
     propagate(*args)
-    before = propagate.launches
+    before = propagate.launches.read()
     _, sites = sync_sites(lambda: propagate(*args))
     assert sites == {}, f"propagate made host syncs: {sites}"
-    assert propagate.launches == before + 1
+    assert propagate.launches.read() == before + 1
     syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
              "cudaMemcpy")
 
@@ -398,16 +409,18 @@ def test_lio_step_with_imu_kernel_follows_plain_propagation(cuda, monkeypatch):
              for d in sim.generate(capacity=2 ** 15, imu_capacity=16)]
     runs = []
     for plain in (False, True):
-        if plain:
+        step = lio.lio_step
+        if plain:     # the eager body: the graphs of lio_step hold the kernel
             monkeypatch.setattr(lio, "propagate", imu.propagate_plain)
+            step = lio._lio_step_eager
         st = lio.lio_init(cfg, nav_at_start(sim, cuda))
-        before = imu.propagate.launches
+        before = imu.propagate.launches.read()
         poses, covs = [], []
         for scan in scans:
-            st, info = lio.lio_step(cfg, st, *scan)
+            st, info = step(cfg, st, *scan)
             poses.append(info["pose"])
             covs.append(st.P)
-        assert imu.propagate.launches - before == (0 if plain else n)
+        assert imu.propagate.launches.read() - before == (0 if plain else n)
         runs.append([torch.stack(x).double().cpu().numpy() for x in (poses, covs)])
     (pk, ck), (pp, cp) = runs
     pos = np.linalg.norm(pk[:, :3, 3] - pp[:, :3, 3], axis=1).max()
@@ -431,11 +444,11 @@ def test_lio_step_on_card_matches_cpu(cuda):
     final = {}
     for dev in ("cpu", cuda):
         st = lio_init(cfg, nav_at_start(sim, dev))
-        before = p2p_reduce.launches
+        before = p2p_reduce.launches.read()
         for tup in data:
             st, _ = lio_step(cfg, st, *[torch.as_tensor(a, device=dev) for a in tup[:5]])
         if dev != "cpu":
-            assert p2p_reduce.launches - before == cfg.max_iters * len(data)
+            assert p2p_reduce.launches.read() - before == cfg.max_iters * len(data)
         final[str(dev)] = st.nav.pos.cpu().numpy()
     np.testing.assert_allclose(final["cuda:0"], final["cpu"], atol=1e-3)
 
@@ -461,13 +474,284 @@ def test_sharded_lio_step_nccl_world_1_matches_lio_step(cuda):
         st_1 = lio_init(cfg, nav_at_start(sim, cuda))
         for tup in data:
             scan = [torch.as_tensor(a, device=cuda) for a in tup[:5]]
-            before = p2p_reduce.launches
+            before = p2p_reduce.launches.read()
             st_s, pose = step(st_s, *scan)
-            assert p2p_reduce.launches - before == cfg.max_iters
+            assert p2p_reduce.launches.read() - before == cfg.max_iters
             st_1, info = lio_step(cfg, st_1, *scan)
             np.testing.assert_allclose(pose[:3, 3].cpu().numpy(),
                                        info["pose"][:3, 3].cpu().numpy(), atol=1e-3)
         assert st_s.map.capacity == cfg.map_capacity
+
+
+# ---- the LIO step as CUDA graphs, and its degeneracy gate -------------------
+
+def _bench_drive(dev, n, seed=7):
+    from lsd_tpu_torch.sim import CircleSim, SimConfig
+    from lsd_tpu_torch.tools.profile_lio import nav_at_start
+    sim = CircleSim(SimConfig(n_scans=n, points_per_scan=2 ** 15, point_noise=0.01, seed=seed))
+    scans = [tuple(torch.as_tensor(a, device=dev) for a in d[:5])
+             for d in sim.generate(capacity=2 ** 15, imu_capacity=16)]
+    return nav_at_start(sim, dev), scans
+
+
+def _lio_limits():
+    import json
+    from pathlib import Path
+    return json.loads((Path(__file__).resolve().parent.parent
+                       / "port_bench" / "limits" / "lio-replay.json").read_text())
+
+
+def _fresh_runners(monkeypatch):
+    """An empty cache of keys: the next call of a key warms, the one after
+    captures."""
+    import collections
+    from lsd_tpu_torch.slam import lio_graph
+    monkeypatch.setattr(lio_graph, "_runners", collections.OrderedDict())
+    return lio_graph
+
+
+GRAPH_CASES = {
+    "surfel": {},
+    "points": dict(map_type="points"),
+    "research_every_iteration": dict(research_thresh=1e-9),
+    "trim": dict(recenter_thresh=0.5, map_radius=8.0),
+}
+
+
+@pytest.mark.parametrize("case,deterministic", [(c, True) for c in GRAPH_CASES]
+                         + [("surfel", False)])
+def test_lio_graphs_follow_the_eager_body_at_bench_size(cuda, case, deterministic,
+                                                        monkeypatch):
+    """40 bench-size scans (32,768 points, ``BENCH_CFG`` with the case's
+    fields) through ``lio_step``'s graphs and through the eager body on the
+    card: every scan's pose and rotation, every covariance and the map's
+    keys after the last within a tenth of the limits that decide the
+    benchmark's ``correct``.  Under deterministic algorithms both run the
+    same kernels in the same order and agreed exactly (H100 80GB HBM3).
+    With the default ones the scatters' float atomics sum in an order that
+    changes from run to run, and the raw-point map's 5-point plane fits and
+    a map trimmed to 8 m carry it into the pose: two eager runs of the
+    raw-point drive parted by 2.6e-4 m, graphs and eager body of the trimmed
+    one by up to 7.8e-4 m, over a tenth of the limit; the surfel map, the
+    benchmark's, also runs with them."""
+    if deterministic:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    try:
+        _graphs_follow_eager(cuda, case, monkeypatch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _graphs_follow_eager(cuda, case, monkeypatch):
+    from lsd_tpu_torch.slam import lio as L
+    from lsd_tpu_torch.tools.profile_lio import BENCH_CFG
+    lio_graph = _fresh_runners(monkeypatch)
+    cfg = BENCH_CFG._replace(**GRAPH_CASES[case])
+    limits = _lio_limits()
+    n = 40
+    nav0, scans = _bench_drive(cuda, n)
+    matches = []
+    match = L._match_planes
+    monkeypatch.setattr(L, "_match_planes", lambda *a: matches.append(1) or match(*a))
+    before = dict(lio_graph.counters)
+    runs = []
+    for step in (L.lio_step, L._lio_step_eager):
+        st = L.lio_init(cfg, nav0)
+        poses, covs = [], []
+        for scan in scans:
+            st, info = step(cfg, st, *scan)
+            poses.append(info["pose"])
+            covs.append(st.P)
+        runs.append([torch.stack(x).double().cpu().numpy() for x in (poses, covs)]
+                    + [st.map.keys.cpu().numpy()])
+    counts = {k: lio_graph.counters[k] - before[k] for k in before}
+    (pg, cg, kg), (pe, ce, ke) = runs
+    pos = np.linalg.norm(pg[:, :3, 3] - pe[:, :3, 3], axis=1).max()
+    chord = np.linalg.norm((pg[:, :3, :3] - pe[:, :3, :3]).reshape(n, -1), axis=1)
+    rot = (2.0 * np.arcsin(np.clip(chord / (2.0 * np.sqrt(2.0)), 0.0, 1.0))).max()
+    cov = (np.abs(cg - ce).reshape(n, -1).max(1) / np.abs(ce).reshape(n, -1).max(1)).max()
+    used = (kg >= 0) | (ke >= 0)
+    keys = float(np.mean(kg[used] != ke[used]))
+    assert pos <= 0.1 * limits["pose_gap_m"], pos
+    assert rot <= 0.1 * limits["rot_gap_rad"], rot
+    assert cov <= 0.1 * limits["cov_gap_rel"], cov
+    assert keys <= 0.1 * limits["map_key_share"], keys
+    assert (counts["captures"], counts["eager"], counts["replays"]) == (1, 1, n - 1)
+    # 0.25 m a scan on the circle: a trim every second or third scan
+    assert (counts["trims"] >= n // 4) if case == "trim" else counts["trims"] == 0
+    if case == "research_every_iteration":    # most scans re-search in the eager body
+        assert len(matches) > 2 * n
+
+
+def test_lio_graph_state_is_fresh_and_its_input_untouched(cuda):
+    """A state that ``lio_step`` returned is intact after three later calls,
+    and the state passed in is unchanged, bitwise."""
+    from lsd_tpu_torch.slam.lio import lio_init, lio_step
+    from lsd_tpu_torch.tools.profile_lio import BENCH_CFG as cfg
+    nav0, scans = _bench_drive(cuda, 6)
+    st = lio_init(cfg, nav0)
+    for scan in scans[:2]:
+        st, _ = lio_step(cfg, st, *scan)
+    leaves = lambda x: ([x] if isinstance(x, torch.Tensor) else
+                        [t for k in sorted(x) for t in leaves(x[k])] if isinstance(x, dict)
+                        else [t for v in x for t in leaves(v)])
+    st_in = st
+    given = [t.clone() for t in leaves(st_in)]
+    st_out, info = lio_step(cfg, st_in, *scans[2])
+    returned = [t.clone() for t in leaves((st_out, info))]
+    st = st_out
+    for scan in scans[3:]:
+        st, _ = lio_step(cfg, st, *scan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(leaves(st_in), given))
+    assert all(torch.equal(a, b) for a, b in zip(leaves((st_out, info)), returned))
+    assert not torch.equal(st.nav.pos, st_out.nav.pos)
+
+
+def test_lio_graph_scan_is_few_launches_and_syncs(cuda, monkeypatch):
+    """After warm-up a bench-size scan is graph replays: at most 100 kernel
+    launches and at most 4 host syncs (the three re-search flags and the trim
+    flag); the counters show one capture for the key, then replays, and
+    the kernels, counting where they run, ran as often as the eager body
+    launches them: the p2p kernel and the gate ``max_iters`` times, the IMU
+    kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+    from lsd_tpu_torch.ops.p2p import p2p_reduce
+    from lsd_tpu_torch.slam.imu import propagate
+    from lsd_tpu_torch.slam.lio import _gate_degenerate, lio_init, lio_step
+    from lsd_tpu_torch.tools.profile_lio import BENCH_CFG as cfg, sync_sites
+    lio_graph = _fresh_runners(monkeypatch)
+    before = dict(lio_graph.counters)
+    nav0, scans = _bench_drive(cuda, 8)
+    st = lio_init(cfg, nav0)
+    for scan in scans[:6]:
+        st, _ = lio_step(cfg, st, *scan)
+    kernels = (p2p_reduce.launches, propagate.launches, _gate_degenerate.launches)
+    for k in kernels:
+        k.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st, info = lio_step(cfg, st, *scans[6])
+    assert [k.read() for k in kernels] == [cfg.max_iters, 1, cfg.max_iters]
+    launches = sum(1 for e in prof.events()
+                   if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    (st, _), sites = sync_sites(lambda: lio_step(cfg, st, *scans[7]))
+    counts = {k: lio_graph.counters[k] - before[k] for k in before}
+    assert launches <= 100, launches
+    assert sum(sites.values()) <= 4, sites
+    assert counts == dict(captures=1, replays=7, eager=1, trims=0), counts
+
+
+GATE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("n_small", [0, 1, 2, 3])
+def test_gate_kernel_matches_plain(cuda, n_small):
+    """The gate kernel against ``_gate_degenerate_plain`` on the card over
+    random symmetric positive definite pose blocks with ``n_small``
+    eigenvalues under ``degen_thresh`` (the rest at least 4 times over it,
+    at most 200): E within 1e-5 (float32 eigenvectors of such blocks,
+    ~1.2e-7 * 200 / 10), counts equal; one launch a call, bitwise
+    repeatable; a CUDA-graph replay equals a direct call, and the launch
+    count, taken where the kernel runs, counts the replay and not the
+    capture."""
+    from lsd_tpu_torch.slam import lio as L
+    cfg = L.LioConfig()
+    rng = np.random.default_rng(n_small)
+    trials = 0
+    while trials < 20:
+        small = rng.uniform(0.0, 0.5 * cfg.degen_thresh, n_small)
+        large = rng.uniform(4.0 * cfg.degen_thresh, 200.0, 6 - n_small)
+        Q, _ = np.linalg.qr(rng.normal(size=(6, 6)))
+        A = (Q * np.concatenate([small, large])) @ Q.T
+        mu = np.linalg.eigvalsh(A[3:6, 3:6])
+        if np.abs(mu - cfg.degen_rel_frac * mu[-1]).min() < 1e-3 * mu[-1]:
+            continue        # n_weak's bar within float32's reach of an eigenvalue
+        trials += 1
+        H = rng.normal(scale=0.1, size=(24, 24))
+        H = H @ H.T
+        H[:6, :6] = A
+        HtH = torch.as_tensor(H.astype(np.float32), device=cuda)
+        before = L._gate_degenerate.launches.read()
+        got = L._gate_degenerate(cfg, HtH)
+        again = L._gate_degenerate(cfg, HtH)
+        assert L._gate_degenerate.launches.read() == before + 2
+        want = L._gate_degenerate_plain(cfg, HtH)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert float((got[0] - want[0]).abs().max()) <= GATE_TOL
+        assert int(got[1]) == int(want[1]) == n_small
+        assert int(got[2]) == int(want[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        L._gate_degenerate(cfg, HtH)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = L._gate_degenerate.launches.read()
+    with torch.cuda.graph(graph):
+        captured = L._gate_degenerate(cfg, HtH)
+    assert L._gate_degenerate.launches.read() == n0
+    HtH[:6, :6].mul_(0.5)               # the replay reads HtH as it is now
+    graph.replay()
+    direct = L._gate_degenerate(cfg, HtH)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, direct))
+    assert L._gate_degenerate.launches.read() == n0 + 2
+
+
+def test_gate_kernel_makes_no_host_sync(cuda):
+    from lsd_tpu_torch.slam import lio as L
+    from lsd_tpu_torch.tools.profile_lio import sync_sites
+    HtH = torch.eye(24, device=cuda) * 50.0
+    L._gate_degenerate(L.LioConfig(), HtH)
+    _, sites = sync_sites(lambda: L._gate_degenerate(L.LioConfig(), HtH))
+    assert sites == {}
+
+
+def test_lio_graph_captures_while_another_thread_launches(cuda, monkeypatch):
+    """A key warmed and captured while a second thread launches kernels and
+    reads values back on the default stream (as the pipeline's stages do):
+    the capture succeeds and the steps equal the eager body's.  (The second
+    thread draws no random numbers on the card: a capture registers the
+    default CUDA generator, and torch refuses its use from another thread
+    while the capture lasts.)"""
+    import threading
+    from lsd_tpu_torch.slam import lio as L
+    from lsd_tpu_torch.tools.profile_lio import BENCH_CFG as cfg
+    lio_graph = _fresh_runners(monkeypatch)
+    nav0, scans = _bench_drive(cuda, 5)
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def busy():
+        try:
+            x = torch.zeros(4096, device=cuda)
+            a = torch.full((256, 256), 0.01, device=cuda)
+            while not stop.is_set():
+                x.add_(1.0)
+                float((a @ a).sum())
+                rounds[0] += 1
+        except Exception as exc:       # reported below: the thread must not die silently
+            errors.append(exc)
+    other = threading.Thread(target=busy)
+    other.start()
+    try:
+        before = lio_graph.counters["captures"]
+        st = L.lio_init(cfg, nav0)
+        got = []
+        for scan in scans:
+            st, info = L.lio_step(cfg, st, *scan)
+            got.append(info["pose"])
+        captured = lio_graph.counters["captures"] - before
+    finally:
+        stop.set()
+        other.join(timeout=60)
+    assert not other.is_alive() and not errors and rounds[0] > 0
+    assert captured == 1
+    st = L.lio_init(cfg, nav0)
+    for k, scan in enumerate(scans):
+        st, info = L._lio_step_eager(cfg, st, *scan)
+        assert float((info["pose"] - got[k]).abs().max()) <= 1e-4
 
 
 # ---- the mapping path's ops: the card against the CPU ----------------------
@@ -803,14 +1087,14 @@ def test_localizer_on_card_matches_cpu(cuda, tmp_path):
             lio=LioConfig(max_iters=3, **lio), ndt_capacity=2 ** 13, track_capacity=2048,
             update_map_every=0.5), device=dev)
         loc.set_init_pose(hint)
-        before = p2p_reduce.launches
+        before = p2p_reduce.launches.read()
         res = []
         for k, (P, S, M, I, IM, _) in enumerate(scans):
             smp = drive.imu_sample(0.037 + k * 0.1)
             res.append(loc.process_scan(P, M, int((0.037 + k * 0.1) * 1e6), imu_gyro=smp[1:4],
                                         imu_acc=smp[4:7] * 9.81, stamps=S, imu=I, imu_mask=IM))
         if dev != "cpu":
-            assert p2p_reduce.launches - before == 3 * len(scans)
+            assert p2p_reduce.launches.read() - before == 3 * len(scans)
             assert loc.ukf.x.device.type == "cuda" and loc.ndt_map.keys.device.type == "cuda"
         assert loc.last_step_diag["has_odom"]
         outs[str(dev)] = res
@@ -1100,7 +1384,7 @@ def test_slam_module_on_card_matches_cpu(cuda):
         m = SlamModule(cfg, device=dev)
         m.setup(cfg)
         m.engine.lio_state = lio_init(m.engine.cfg.lio, nav_at_start(sim, dev))
-        before = p2p_reduce.launches
+        before = p2p_reduce.launches.read()
         poses = []
         t = threading.Thread(target=lambda: poses.extend(
             m.process(dict(d))["slam_pose"].copy() for d in frames + frames[-1:]))
@@ -1108,7 +1392,7 @@ def test_slam_module_on_card_matches_cpu(cuda):
         t.join()
         assert len(poses) == len(frames) + 1 and len(m.engine.odometry) == len(frames)
         if dev != "cpu":
-            assert p2p_reduce.launches - before == 3 * len(frames)
+            assert p2p_reduce.launches.read() - before == 3 * len(frames)
         runs[str(dev)] = m.engine, np.stack(poses)
         clear_interfaces()
     (ce, cp), (ge, gp) = runs["cpu"], runs["cuda:0"]
@@ -1223,9 +1507,9 @@ def test_run_tpu_lio_runs_on_the_card_by_default(cuda):
     sim = CorridorSim(SimConfig(n_scans=12, points_per_scan=8192, point_noise=0.01, seed=5,
                                 rest_time=0.3, ramp_time=0.3))
     data = sim.generate(capacity=8192, imu_capacity=16)
-    p2p_reduce.launches = 0
+    p2p_reduce.launches.reset()
     ate, ms, _ = run_tpu_lio(sim, data, 4)
-    assert p2p_reduce.launches == 4 * len(data)
+    assert p2p_reduce.launches.read() == 4 * len(data)
     assert np.isfinite(ate) and ate < 0.1 and ms > 0
 
 
@@ -1325,10 +1609,10 @@ def test_online_frames_slam_module_on_card_matches_cpu(cuda, tmp_path):
         m = SlamModule(cfg, device=dev)
         m.setup(cfg)
         m.engine.lio_state = lio_init(m.engine.cfg.lio, nav_at_start(sim, dev))
-        before = p2p_reduce.launches
+        before = p2p_reduce.launches.read()
         poses[str(dev)] = np.stack([m.process(dict(f))["slam_pose"].copy() for f in frames])
         if dev != "cpu":
-            assert p2p_reduce.launches - before == 3 * len(frames)
+            assert p2p_reduce.launches.read() - before == 3 * len(frames)
         m.release()
         clear_interfaces()
     assert np.isfinite(poses["cuda:0"]).all()

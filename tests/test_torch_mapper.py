@@ -230,3 +230,33 @@ def test_mapper_accepts_tensors_and_raw_point_keyframes(runs):
     m._add_keyframe(P, M, T, 7, None)
     assert len(m.store) == 2 and m.store[1].cloud.shape[1] == 4 and len(m.sc_ids) == 2
     assert 100 < len(m.store[1].cloud) <= 2048
+
+
+@pytest.mark.parametrize("wedged", [False, True])
+def test_graph_worker_sheds_only_a_wedged_job(monkeypatch, wedged):
+    """With the worker's queue full for the put's 2 s, odometry waits for a
+    job that is only slow (a replay faster than the sensor) and drops the
+    oldest pending job, coalescing in the new one, when the worker's job has
+    run past ``WEDGED_S``."""
+    import threading
+    release = threading.Event()
+    m = tmap.Mapper(tmap.MapperConfig(lio=TLioConfig(**LIO), async_graph=True), device="cpu")
+    done = []
+
+    def work(kid, *rest):
+        if kid == 0:               # the first job: slow (2.5 s), or wedged until released
+            release.wait(timeout=30.0 if wedged else 2.5)
+        done.append(kid)
+    monkeypatch.setattr(m, "_kf_graph_work", work)
+    monkeypatch.setattr(tmap, "WEDGED_S", 0.5 if wedged else 30.0)
+    try:
+        for kid in range(10):      # 1 on the worker, 8 queued, 1 more
+            m._enqueue_graph_job((kid, None, None, None))
+    finally:
+        release.set()
+    m.flush()
+    m.close()
+    if wedged:
+        assert m.loop_stats.get("dropped_jobs") == 1 and done == [0] + list(range(2, 10))
+    else:
+        assert "dropped_jobs" not in m.loop_stats and done == list(range(10))
