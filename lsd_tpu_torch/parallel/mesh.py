@@ -28,7 +28,6 @@ import contextlib
 import datetime
 import hashlib
 import multiprocessing as mp
-import os
 import queue as queue_mod
 import time
 import traceback
@@ -196,7 +195,12 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), backend: str =
     start, and all must have returned within ``timeout_s`` (also the
     group's own timeout for a collective).  When a rank raises or dies, or
     a deadline passes, the ranks still running are killed and the error is
-    raised here, with the failing rank's traceback."""
+    raised here, with the failing rank's traceback.
+
+    The ranks split this process's torch intra-op threads, not the
+    machine's cores: ``max(1, torch.get_num_threads() // world_size)``
+    each.  At torch's default that is the cores; a process given fewer
+    keeps its ranks within them."""
     if world_size < 1:
         raise ValueError(f"run_ranks: world size {world_size}")
     if backend == "nccl" and torch.cuda.device_count() < world_size:
@@ -206,7 +210,7 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), backend: str =
     results = ctx.Queue()
     store = dist.TCPStore(HOST, 0, is_master=True, wait_for_workers=False,
                           timeout=datetime.timedelta(seconds=init_timeout_s))
-    threads = max(1, (os.cpu_count() or 1) // world_size)
+    threads = max(1, torch.get_num_threads() // world_size)
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, world_size, backend, store.port, tuple(args), results,
                                init_timeout_s, timeout_s, threads))

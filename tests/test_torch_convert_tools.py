@@ -16,7 +16,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from lsd_tpu import sim as jsim
 from lsd_tpu.io.recorder import FrameRecorder as JRecorder
@@ -32,15 +31,6 @@ from lsd_tpu_torch.tools import kitti as tkitti
 from lsd_tpu_torch.tools import nclt as tnclt
 from lsd_tpu_torch.tools import postprocessing as tpost
 from tests import test_tools as ref_tools
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite's processes share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _files(d):

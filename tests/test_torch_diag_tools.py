@@ -15,7 +15,6 @@ between keyframes 6 apart.
 """
 import numpy as np
 import pytest
-import torch
 
 import jax
 from lsd_tpu.tools import campaign_diag as jdiag
@@ -27,15 +26,6 @@ from lsd_tpu_torch.tools import loc_diag as tloc_diag
 
 LAPS, RADIUS, SPEED, POINTS = 0.5, 8.0, 5.0, 2048
 ATE_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite's processes share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _world():

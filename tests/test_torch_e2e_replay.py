@@ -20,7 +20,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import lsd_tpu.runtime as jrt
 import lsd_tpu_torch.runtime as trt
@@ -35,17 +34,6 @@ from lsd_tpu_torch.tools.recording import frame_dict
 from tests.test_torch_slam_module import private_buses  # noqa: F401 (autouse)
 
 N_SCANS, POINTS = 24, 2048
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs in several processes that share the machine's cores:
-    one intra-op thread each, or their OpenMP threads spin against each
-    other (this file took 8x as long beside one other process)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,7 +26,6 @@ import pickle
 
 import numpy as np
 import pytest
-import torch
 
 import lsd_tpu.slam as jslam
 import lsd_tpu_torch.slam as tslam
@@ -46,15 +45,6 @@ from lsd_tpu_torch.tools import evaluate as tevaluate
 from lsd_tpu_torch.tools import export_replay as texport
 
 MOT_ATOL, ATE_ATOL = 1e-6, 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite's processes share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _box(x, y, heading=0.0, size=(4.0, 2.0, 1.6)):

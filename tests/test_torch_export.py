@@ -47,8 +47,6 @@ CAP = 4096
 def exported(tmp_path_factory):
     """(flax params, the port's eager bf16 module, its artifact's path, the
     float32 twin's artifact's path, a frame)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     root = tmp_path_factory.mktemp("export")
     model = JDetector(SMALL)
     params = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1024, 4), jnp.float32),
@@ -69,7 +67,6 @@ def exported(tmp_path_factory):
     pts = (rng.random((CAP, 4)) * [60, 60, 4, 1] - [30, 30, 2, 0]).astype(np.float32)
     eager = texport.DetectorInference(tmodel, PostProcessConfig()).eval()
     yield params, eager, path, path32, pts
-    torch.set_num_threads(n)
 
 
 def test_artifact_matches_eager(exported):

@@ -12,19 +12,8 @@ at least 0.9 of the scored frames tracking; tracked RMSE x and y < 0.3 m,
 heading < 1.0 deg.  Port only: the reference runs the same tool
 (``tests/test_torch_eval_tools.py`` holds its parts to the reference's).
 """
-import torch
-import pytest
 
 from lsd_tpu_torch.tools import loc_eval as tloc
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite's processes share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_loc_eval_builds_a_map_and_relocalises(tmp_path):

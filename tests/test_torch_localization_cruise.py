@@ -41,7 +41,7 @@ SPEED = 8.0 * 0.8
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world(tmp_path_factory, default_torch_threads):
     sim = CircleSim(SimConfig(n_scans=60, **WORLD))
     mapper = Mapper(MapperConfig(lio=TLioConfig(**LIO), keyframe_delta_trans=1.5,
                                  optimize_every=8, keyframe_cloud_cap=4096),

@@ -19,7 +19,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import lsd_tpu.runtime as jrt
 import lsd_tpu_torch.runtime as trt
@@ -36,17 +35,6 @@ cv2 = pytest.importorskip("cv2")
 
 POSE_ATOL = 2e-3
 K = np.asarray([[300.0, 0, 160], [0, 300, 120], [0, 0, 1]])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs in several processes that share the machine's cores:
-    one intra-op thread each, or their OpenMP threads spin against each
-    other (this file took 8x as long beside one other process)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jnav(sim):

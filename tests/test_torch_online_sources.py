@@ -686,24 +686,19 @@ def test_online_frames_through_both_slam_modules():
     np.testing.assert_array_equal(got[:, :3], want)
     assert all(f["ins_valid"] and len(f["imu_data"]) == 0 for f in frames[2:])
     poses = {}
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for pkg, cls, kw in (("jax", JSlam, {}), ("torch", TSlam, dict(device="cpu"))):
-            cfg = PKG[pkg]["rt"].ConfigManager().config
-            cfg.input.mode = "online"
-            cfg.slam.update(mode="mapping", resolution=0.4, key_frames_interval=[1.5, 0.3],
-                            async_graph=False, async_fetch=False)
-            m = cls(cfg, **kw)
-            m.setup(cfg)
-            if pkg == "jax":
-                _seed_jax(m.engine, sim)
-            else:
-                m.engine.lio_state = lio_init(m.engine.cfg.lio, nav_at_start(sim, "cpu"))
-            poses[pkg] = np.stack([m.process(dict(f))["slam_pose"].copy() for f in frames])
-            m.release()
-    finally:
-        torch.set_num_threads(n_threads)
+    for pkg, cls, kw in (("jax", JSlam, {}), ("torch", TSlam, dict(device="cpu"))):
+        cfg = PKG[pkg]["rt"].ConfigManager().config
+        cfg.input.mode = "online"
+        cfg.slam.update(mode="mapping", resolution=0.4, key_frames_interval=[1.5, 0.3],
+                        async_graph=False, async_fetch=False)
+        m = cls(cfg, **kw)
+        m.setup(cfg)
+        if pkg == "jax":
+            _seed_jax(m.engine, sim)
+        else:
+            m.engine.lio_state = lio_init(m.engine.cfg.lio, nav_at_start(sim, "cpu"))
+        poses[pkg] = np.stack([m.process(dict(f))["slam_pose"].copy() for f in frames])
+        m.release()
     assert np.isfinite(poses["torch"]).all() and len(poses["torch"]) == len(frames)
     np.testing.assert_allclose(poses["torch"], poses["jax"], atol=POSE_ATOL)
 

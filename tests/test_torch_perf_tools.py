@@ -43,15 +43,6 @@ from lsd_tpu_torch.tools import scaling as tscaling
 from lsd_tpu_torch.tools import schur_chip_bench as tbench
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite's processes share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("kw,raw", [(dict(), 2 ** 15),
                                     (dict(ds_capacity=4096, map_capacity=2 ** 16, max_iters=3),
                                      8192)])

@@ -40,17 +40,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {"jax": (jrt, jmod, jpipe), "torch": (trt, tmod, tpipe)}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs in several processes that share the machine's cores:
-    one intra-op thread each, or their OpenMP threads spin against each
-    other (this file took 8x as long beside one other process)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(autouse=True)
 def _clean_interfaces():
     jrt.clear_interfaces()

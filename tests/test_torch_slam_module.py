@@ -33,7 +33,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import lsd_tpu.comms.bus as jbus
 import lsd_tpu.runtime as jrt
@@ -55,17 +54,6 @@ from tests.test_io import make_frame_dict
 
 PKGS = (("jax", jrt, JSlam, {}), ("torch", trt, TSlam, dict(device="cpu")))
 POSE_ATOL = 2e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs in several processes that share the machine's cores:
-    one intra-op thread each, or their OpenMP threads spin against each
-    other (this file took 8x as long beside one other process)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

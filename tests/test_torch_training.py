@@ -224,7 +224,7 @@ def _check_params(tr, want, start):
         assert float(np.abs(mine[k] - v).max()) <= PARAM_LR * LR, jax.tree_util.keystr(k)
 
 
-def test_float32_trainer_steps_match_jax():
+def test_float32_trainer_steps_match_jax(default_torch_threads):
     params = _start()
     batches = _batches(STEPS)
     want, _, want_losses = _run_jax(params, TX.init(params), batches)

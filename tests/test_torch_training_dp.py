@@ -85,7 +85,7 @@ def _reference_sharded(start, batches):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(default_torch_threads):
     batches = _batches(3)
     ranks = run_ranks(torch_ranks.train_steps, 2, backend="gloo",
                       args=(TCFG, TR_CFG, batches, torch.float32))

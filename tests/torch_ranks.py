@@ -55,6 +55,11 @@ def die_in_collective(mesh, how):
     return mesh.rank
 
 
+def num_threads(mesh):
+    """The torch intra-op threads this rank was given."""
+    return torch.get_num_threads()
+
+
 def sharded_map_run(mesh, cfg, scans, nav0=None):
     """The map-sharded step over ``scans`` (tuples of numpy arrays): each
     scan's pose, and this rank's map capacity and occupied slots."""
